@@ -1,0 +1,296 @@
+"""Smoke run of fastkmer_tpu_torch on one CUDA card.
+
+    python3 chip_smoke.py
+
+Builds the CUDA kernels from ``fastkmer_tpu_torch/csrc`` at first use and
+drives the port's main path (the single-chip sort-engine count job).  Each
+phase raises on failure, so the process exits non-zero:
+
+1. card: needs ``torch.cuda.is_available()``; prints nvidia-smi's name and
+   power limit;
+2. build: compiles the kernels with nvcc and prints the seconds taken;
+3. kernel vs plain: the extract kernel against its plain torch version on
+   the card (``torch.equal``) for every listed (k, m), at [512, 4096] and a
+   ragged [3, k+5], and at phase 5's [4096, 4096] for k=28, where both are
+   timed with CUDA events;
+4. slice parity: the CLI entry (``cli.main``) on a seeded ~4 Mbp FASTA
+   with Ns, at k=28 and k=32, with ``--device cuda`` and ``--device cpu``;
+   the output directories must be identical;
+5. real size: ``cli.main`` on 150-base reads at 16x coverage of a
+   16,777,216-base random genome, k=28 m=10 x=3 B=2048, write=1,
+   4096 x 4096 batches; checks the kernel launches against the batches the
+   run made, the manifest, the instance count against the valid windows
+   counted on the host, and the table's order.
+
+The script imports only the port (``fastkmer_tpu_torch``), torch and numpy.
+
+The line before the last is one JSON object with the kernels' launches,
+errors and times; the last line is ``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+EXTRACT_CASES = [(28, 10, False), (31, 8, False), (13, 4, False), (55, 9, False),
+                 (97, 13, False), (155, 14, False), (32, 10, True), (64, 11, True)]
+GENOME = 1 << 24
+COVERAGE = 16
+READ_LEN = 150
+BASE_CODE = np.full(256, 4, np.uint8)  # ASCII -> 2-bit code, 4 = not ACGT
+BASE_CODE[np.frombuffer(b"ACGT", np.uint8)] = np.arange(4, dtype=np.uint8)
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise RuntimeError(msg)
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def random_codes(rng, R: int, L: int, invalid: float = 0.01) -> np.ndarray:
+    codes = rng.integers(0, 4, size=(R, L), dtype=np.uint8)
+    codes[rng.random((R, L)) < invalid] = 4
+    return codes
+
+
+def write_reads_fasta(path: str, reads: np.ndarray) -> None:
+    """[n, len] codes (4 = N) -> FASTA with one record per row."""
+    n, ln = reads.shape
+    recs = np.empty((n, ln + 4), np.uint8)
+    recs[:, :3] = np.frombuffer(b">r\n", np.uint8)
+    recs[:, 3 : 3 + ln] = np.frombuffer(b"ACGTN", np.uint8)[reads]
+    recs[:, -1] = ord("\n")
+    recs.tofile(path)
+
+
+def sample_reads(rng, genome: np.ndarray, n: int, n_rate: float) -> np.ndarray:
+    """Reads from both strands of ``genome`` with ~n_rate Ns."""
+    starts = rng.integers(0, genome.shape[0] - READ_LEN + 1, size=n)
+    reads = genome[starts[:, None] + np.arange(READ_LEN)[None, :]]
+    rc = rng.random(n) < 0.5
+    reads[rc] = 3 - reads[rc, ::-1]
+    reads[rng.random(reads.shape) < n_rate] = 4
+    return reads
+
+
+def valid_windows(reads: np.ndarray, k: int) -> int:
+    """Windows of k bases with no N, counted on the host."""
+    bad = np.zeros((reads.shape[0], reads.shape[1] + 1), np.int16)
+    np.cumsum(reads >= 4, axis=1, out=bad[:, 1:])
+    return int(((bad[:, k:] - bad[:, :-k]) == 0).sum())
+
+
+def dir_bytes(d: str) -> dict[str, bytes]:
+    return {n: open(os.path.join(d, n), "rb").read() for n in sorted(os.listdir(d))}
+
+
+def read_bin_table(out_dir: str, k: int):
+    """Parse every bin file: -> (lines, sum of counts, all files strictly
+    ascending).  k <= 32, so a k-mer packs into one uint64 key."""
+    n_lines, total, ascending = 0, 0, True
+    for name in os.listdir(out_dir):
+        if not name.startswith("bin"):
+            continue
+        data = np.fromfile(os.path.join(out_dir, name), np.uint8)
+        check(data[-3:].tobytes() == b"EOF", f"{name}: no EOF sentinel")
+        data = data[:-3]
+        nl = np.flatnonzero(data == ord("\n"))
+        starts = np.concatenate([[0], nl[:-1] + 1])
+        check(bool((data[starts + k] == ord("\t")).all()), f"{name}: bad line layout")
+        codes = BASE_CODE[data[starts[:, None] + np.arange(k)]].astype(np.uint64)
+        check(bool((codes < 4).all()), f"{name}: non-ACGT k-mer")
+        key = np.zeros(starts.shape[0], np.uint64)
+        for j in range(k):
+            key = (key << np.uint64(2)) | codes[:, j]
+        ascending &= bool((key[1:] > key[:-1]).all())
+        first = starts + k + 1
+        nd = nl - first
+        val = np.zeros(starts.shape[0], np.int64)
+        for d in range(int(nd.max())):
+            has = d < nd
+            digit = data[np.where(has, first + d, 0)].astype(np.int64) - ord("0")
+            val = np.where(has, val * 10 + digit, val)
+        n_lines += starts.shape[0]
+        total += int(val.sum())
+    return n_lines, total, ascending
+
+
+def time_ms(fn, iters: int) -> float:
+    """Median milliseconds of ``fn`` on the card (CUDA events, warmed up)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: torch is not installed", file=sys.stderr)
+        return 1
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
+        return 1
+    sys.path.insert(0, REPO)
+    try:
+        from fastkmer_tpu_torch import api, cli
+        from fastkmer_tpu_torch.ops import cuda_extract
+    except ImportError as e:
+        print(f"chip_smoke: the repository is not beside this script ({e})", file=sys.stderr)
+        return 1
+
+    # --- 1. card ---------------------------------------------------------
+    smi = subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip()
+    log(smi)
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
+        f"device {torch.cuda.get_device_name(0)}")
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(20261016)
+
+    # --- 2. build --------------------------------------------------------
+    t0 = time.perf_counter()
+    cuda_extract.library()
+    log(f"[build] extract kernel built and loaded in {time.perf_counter() - t0:.2f} s")
+
+    # --- 3. kernel vs plain on the card ------------------------------------
+    max_err = 0
+    for k, m, flag in EXTRACT_CASES:
+        for R, L in ((512, 4096), (3, k + 5)):
+            codes = torch.from_numpy(random_codes(rng, R, L)).to(dev)
+            got = cuda_extract.extract_sentinel(codes, k, m, 2048, flag_lane=flag)
+            torch.cuda.synchronize()
+            ref = cuda_extract.extract_sentinel_reference(codes, k, m, 2048, flag_lane=flag)
+            torch.cuda.synchronize()
+            check(len(got) == len(ref), f"k={k}: {len(got)} columns, plain has {len(ref)}")
+            for g, r in zip(got, ref):
+                err = int((g.to(torch.int64) - r.to(torch.int64)).abs().max())
+                max_err = max(max_err, err)
+                check(torch.equal(g, r), f"kernel != plain at k={k} m={m} [{R}, {L}]")
+        log(f"[kernel] k={k} m={m} flag={flag}: equal to plain at [512, 4096] and [3, {k + 5}]")
+    big = torch.from_numpy(random_codes(rng, 4096, 4096)).to(dev)  # phase 5's batch shape
+    for g, r in zip(cuda_extract.extract_sentinel(big, 28, 10, 2048),
+                    cuda_extract.extract_sentinel_reference(big, 28, 10, 2048)):
+        check(torch.equal(g, r), "kernel != plain at k=28 [4096, 4096]")
+    kernel_ms = time_ms(lambda: cuda_extract.extract_sentinel(big, 28, 10, 2048), 50)
+    plain_ms = time_ms(lambda: cuda_extract.extract_sentinel_reference(big, 28, 10, 2048), 10)
+    del big
+    gbytes = 4096 * 4096 * (1 + 8) / 1e9  # 1 B in, 2 words of 4 B out per position
+    log(f"[kernel] [4096, 4096] k=28: kernel {kernel_ms:.4f} ms "
+        f"({gbytes / kernel_ms * 1e3:.1f} GB/s), plain {plain_ms:.4f} ms")
+
+    # --- 4. slice parity: cuda vs cpu --------------------------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        genome = rng.integers(0, 4, size=1 << 17, dtype=np.uint8)
+        reads = sample_reads(rng, genome, (4 << 20) // READ_LEN, 0.005)
+        fa = os.path.join(tmp, "parity.fa")
+        write_reads_fasta(fa, reads)
+        stats = os.path.join(tmp, "stats.json")
+        for k, m in ((28, 10), (32, 9)):
+            res = {}
+            out = {}
+            for d in ("cuda", "cpu"):
+                argv = [str(k), str(m), "3", "2048", "0", "0", fa, tmp + "/", "parity_",
+                        "1", "0", "0", "--device", d, "--reads-per-batch", "256",
+                        "--read-len", "4096", "--stats-json", stats]
+                t0 = time.perf_counter()
+                check(cli.main(argv) == 0, f"k={k} {d}: cli.main failed")
+                res[d] = json.load(open(stats))
+                out[d] = dir_bytes(res[d]["output_dir"])
+                log(f"[parity] k={k} {d}: {res[d]['n_instances']} instances, "
+                    f"{res[d]['n_unique']} distinct, {time.perf_counter() - t0:.2f} s")
+            check(out["cuda"] == out["cpu"], f"k={k}: cuda and cpu output directories differ")
+            check(res["cuda"]["n_instances"] == valid_windows(reads, k),
+                  f"k={k}: instances != valid windows")
+            log(f"[parity] k={k}: {len(out['cuda'])} files byte-identical")
+
+    # --- 5. the CLI at real size --------------------------------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        genome = rng.integers(0, 4, size=GENOME, dtype=np.uint8)
+        reads = sample_reads(rng, genome, COVERAGE * GENOME // READ_LEN, 0.001)
+        fa = os.path.join(tmp, "reads.fa")
+        write_reads_fasta(fa, reads)
+        expect = valid_windows(reads, 28)
+        n_bases = reads.size
+        del genome, reads
+        log(f"[real] {n_bases} bases in {COVERAGE * GENOME // READ_LEN} reads, "
+            f"{expect} valid windows; data made in {time.perf_counter() - t0:.1f} s")
+        stats = os.path.join(tmp, "stats.json")
+        argv = ["28", "10", "3", "2048", "0", "0", fa, tmp + "/", "real_", "1", "0", "0",
+                "--device", "cuda", "--reads-per-batch", "4096", "--read-len", "4096",
+                "--unique-ub", str(GENOME), "--stats-json", stats]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        cuda_extract.LAUNCHES = 0
+        t0 = time.perf_counter()
+        rc = cli.main(argv)
+        wall = time.perf_counter() - t0
+        launches = cuda_extract.LAUNCHES
+        peak = torch.cuda.max_memory_allocated()
+        check(rc == 0, f"cli.main returned {rc}")
+        summary = json.load(open(stats))
+        out_dir = summary["output_dir"]
+        n_batches = summary["n_batches"]
+        check(n_batches >= -(-n_bases // (4096 * 4096)), f"{n_batches} batches is too few")
+        check(launches >= n_batches, f"{launches} kernel launches for {n_batches} batches")
+        check(api.verify_output(out_dir)["ok"], "manifest verify failed")
+        n_lines, total, ascending = read_bin_table(out_dir, 28)
+        check(summary["n_bases"] == n_bases, "n_bases mismatch")
+        check(summary["n_instances"] == expect,
+              f"n_instances {summary['n_instances']} != valid windows {expect}")
+        check(total == expect, f"sum of written counts {total} != {expect}")
+        check(n_lines == summary["n_unique"], "written lines != n_unique")
+        check(ascending, "a bin file is not strictly ascending")
+        count_s = wall - summary["timings"].get("write_output", 0.0)
+        log(f"[real] {summary['n_unique']} distinct, {total} instances, "
+            f"{n_batches} batches, {launches} kernel launches")
+        log(f"[real] end to end {wall:.2f} s = {n_bases / wall / 1e9:.4f} Gbp/s; "
+            f"without write_output {n_bases / count_s / 1e9:.4f} Gbp/s")
+        log(f"[real] stage timings: {json.dumps(summary['timings'])}")
+        log(f"[real] peak device memory {peak / 2**30:.2f} GiB")
+
+    print(json.dumps({"kernels": [{
+        "name": "extract_count",
+        "route": "cuda",
+        "source": "fastkmer_tpu_torch/csrc/extract.cu",
+        "replaces": "fastkmer_tpu/ops/pallas_extract.py:108",
+        "launches": launches,
+        "max_abs_err": max_err,
+        "ms": kernel_ms,
+        "plain_ms": plain_ms,
+    }]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu",
+        "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

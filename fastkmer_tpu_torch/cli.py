@@ -1,0 +1,130 @@
+"""Command-line driver — the port of ``fastkmer_tpu.cli`` (single device).
+
+Accepts the reference's 13 positional arguments in the same order:
+
+    k m x B useHT sequenceType input output prefix write enableKryo
+    useCustomPartitioner [numPartitionTasks]
+
+``--device {cuda,cpu}`` takes the place of ``--platform``.  Every flag that
+is not ported yet raises NotImplementedError instead of being ignored.
+
+    python -m fastkmer_tpu_torch.cli 28 10 3 512 0 0 in.fa out/ run_ 1 0 0
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+
+from fastkmer_tpu.config import JobConfig
+
+from .pipeline import execute_job, not_ported
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="fastkmer_tpu_torch",
+        description="Exact k-mer counting in PyTorch on CUDA (fastkmer-compatible CLI)",
+    )
+    p.add_argument("k", type=int)
+    p.add_argument("m", type=int)
+    p.add_argument("x", type=int)
+    p.add_argument("B", type=int, help="max_b: bins = min(4^m, B)")
+    p.add_argument("useHT", type=int, choices=(0, 1))
+    p.add_argument("sequenceType", type=int, choices=(0, 1))
+    p.add_argument("input")
+    p.add_argument("output")
+    p.add_argument("prefix")
+    p.add_argument("write", type=int, choices=(0, 1))
+    p.add_argument("enableKryo", type=int, choices=(0, 1),
+                   help="1 = binary output (counts.npz)")
+    p.add_argument("useCustomPartitioner", type=int, choices=(0, 1),
+                   help="recorded in the manifest; one device has no bin placement")
+    p.add_argument("numPartitionTasks", type=int, nargs="?", default=0)
+    p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                   help="cuda runs the extract kernel; cpu runs its plain version")
+    p.add_argument("--reads-per-batch", type=int, default=512)
+    p.add_argument("--read-len", type=int, default=4096)
+    p.add_argument("--stats-json", default=None, help="write run summary JSON here")
+    p.add_argument("--unique-ub", type=int, default=None,
+                   help="asserted bound on distinct k-mers (e.g. genome length): "
+                        "sync-free accumulator feed, verified at finalize")
+    p.add_argument("--prededup", choices=("auto", "on", "off"), default="auto",
+                   help="per-batch count+compact before accumulation")
+    # accepted for CLI parity with fastkmer_tpu; each raises until ported
+    p.add_argument("--multiseq", action="store_true")
+    p.add_argument("--distance-measure", default=None)
+    p.add_argument("--mesh", type=int, default=1)
+    p.add_argument("--smer-transport", action="store_true")
+    p.add_argument("--checkpoint-dir", default=None)
+    p.add_argument("--checkpoint-interval", type=int, default=None)
+    p.add_argument("--keep-table", action="store_true")
+    p.add_argument("--trace-dir", default=None)
+    return p
+
+
+def _check_ported(args) -> None:
+    for flag, given in (
+        ("useHT=1", args.useHT == 1),
+        ("--mesh > 1", args.mesh > 1),
+        ("--multiseq", args.multiseq),
+        ("--distance-measure", args.distance_measure is not None),
+        ("--smer-transport", args.smer_transport),
+        ("--checkpoint-dir", args.checkpoint_dir is not None),
+        ("--checkpoint-interval", args.checkpoint_interval is not None),
+        ("--keep-table", args.keep_table),
+        ("--trace-dir", args.trace_dir is not None),
+    ):
+        if given:
+            raise not_ported(flag)
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    _check_ported(args)
+    cfg = JobConfig(
+        dataset=args.input,
+        output_directory=args.output,
+        k=args.k,
+        m=args.m,
+        x=args.x,
+        max_b=args.B,
+        sequence_type=args.sequenceType,
+        write=bool(args.write),
+        use_kryo_serializer=bool(args.enableKryo),
+        use_custom_partitioner=bool(args.useCustomPartitioner),
+        num_partition_tasks=args.numPartitionTasks,
+        prefix=args.prefix,
+        reads_per_batch=args.reads_per_batch,
+        read_len=args.read_len,
+    )
+    res = execute_job(
+        cfg, unique_ub=args.unique_ub,
+        prededup={"auto": None, "on": True, "off": False}[args.prededup],
+        device=args.device,
+    )
+    summary = {
+        "mode": "count",
+        "mesh": args.mesh,
+        "engine": "sort",
+        "device": args.device,
+        "n_instances": res.n_instances,
+        "n_unique": int(res.words.shape[0]),
+        "n_reads": res.n_reads,
+        "n_bases": res.n_bases,
+        "n_batches": res.n_batches,
+        "output_dir": cfg.output_dir if cfg.write else None,
+        "timings": res.timings,
+        "sync_free_feed": args.unique_ub is not None,
+        "prededup": args.prededup,
+    }
+    print(json.dumps(summary, indent=2))
+    if args.stats_json:
+        with open(args.stats_json, "w") as f:
+            json.dump(summary, f, indent=2)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,555 @@
+"""Job orchestration on torch — the port of ``fastkmer_tpu.pipeline``'s
+single-chip sort-engine count job (``execute_job`` with useHT=0):
+
+    host ingest -> fixed-shape [R, L] code batches           (shared, host)
+      -> stage-1 extract, the CUDA kernel (ops.cuda_extract) (device)
+      -> DeviceAccumulator fan-in weighted merge             (device)
+      -> finalize: bins recomputed from words, host spills   (device -> host)
+      -> per-bin text or npz output + manifest               (shared, host)
+
+Every device function takes its tensors on an explicit ``device``.  On a
+CUDA device the extract always runs as the kernel; on the CPU it runs the
+kernel's plain version.  Outputs are byte-identical to the JAX package's.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import os
+from typing import Iterable, NamedTuple
+
+import numpy as np
+import torch
+
+from fastkmer_tpu.config import JobConfig
+from fastkmer_tpu.core.bits import num_words
+from fastkmer_tpu.ingest import batch as batching
+from fastkmer_tpu.ingest.prefetch import prefetched
+from fastkmer_tpu.output import manifest as manifest_mod
+from fastkmer_tpu.output import writer
+from fastkmer_tpu.utils.timing import StageTimer
+
+from .ops import binhash, count_sort, cuda_extract
+
+
+class CountResult(NamedTuple):
+    words: np.ndarray  # [U, W] uint32 unique canonical k-mers, ascending
+    counts: np.ndarray  # [U] int64
+    bins: np.ndarray  # [U] int32
+    n_instances: int  # total counted k-mer instances
+    n_bases: int
+    n_reads: int
+    n_batches: int  # code batches streamed through the device
+    timings: dict
+
+
+def resolve_device(device) -> torch.device:
+    """torch.device for ``device``; raises when CUDA is asked for and absent
+    (a CUDA run never carries on on the CPU)."""
+    dev = torch.device(device)
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {dev} requested but torch.cuda.is_available() is False"
+        )
+    return dev
+
+
+@contextlib.contextmanager
+def _span(timer: StageTimer, name: str, dev: torch.device):
+    """Timer span that waits for the device at its end on CUDA, so each
+    span holds its own device work rather than the work queued before it."""
+    with timer.span(name):
+        yield
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+
+def table_to_device(words: np.ndarray, counts: np.ndarray, bins: np.ndarray, device):
+    """Host table (words [U, W] uint32, counts int64, bins int32) -> (word
+    columns tuple of int32 [U], counts int64 [U], bins int32 [U]) on device."""
+    w = torch.from_numpy(np.ascontiguousarray(words, np.uint32).view(np.int32))
+    w = w.to(device).t().contiguous()
+    return (
+        tuple(w.unbind(0)),
+        torch.from_numpy(np.asarray(counts, np.int64)).to(device),
+        torch.from_numpy(np.asarray(bins, np.int32)).to(device),
+    )
+
+
+def table_to_host(cols, counts: torch.Tensor, bins: torch.Tensor):
+    """Inverse of table_to_device: ``cols`` is a tuple of int32 [U] columns
+    or one [U, W] int32 tensor."""
+    words = cols if isinstance(cols, torch.Tensor) else torch.stack(tuple(cols), 1)
+    return (
+        words.cpu().numpy().view(np.uint32),
+        counts.cpu().numpy().astype(np.int64),
+        bins.cpu().numpy().astype(np.int32),
+    )
+
+
+def _batch_extract_keys(codes: torch.Tensor, k: int, m: int, B: int, flagged: bool = False):
+    """Stage 1 only: pre-sentineled sort-key columns (+ the constant-zero
+    flag lane for k % 16 == 0, where the bare all-ones sentinel equals an
+    all-T k-mer).  No per-batch sort: the accumulator's fan-in merge does
+    all the sorting."""
+    return cuda_extract.extract_sentinel(codes, k, m, B, flag_lane=flagged)
+
+
+def _batch_count(codes: torch.Tensor, k: int, m: int, B: int):
+    """Per-batch count straight to a host unique table (the path without
+    the accumulator)."""
+    W = num_words(k)
+    cols = _batch_extract_keys(codes, k, m, B, not count_sort.sentinel_safe_for(k))
+    sc = count_sort.count_presentineled(list(cols))
+    idx = torch.nonzero(sc.is_uniq).squeeze(1)
+    words = sc.words[idx, :W]
+    return table_to_host(words, sc.counts[idx], binhash.bins_from_words(words, k, m, B))
+
+
+def _batch_count_dedup(codes: torch.Tensor, k: int, m: int, B: int, cap: int):
+    """Pre-dedup step for duplication-heavy inputs: count the batch and
+    compact its unique rows to ``cap``.  Returns (ccols, wts, n_u, over,
+    raw_cols): the batch's distinct count and compaction overflow as 0-d
+    tensors, plus the pre-sort key columns, which the caller admits instead
+    when ``over`` is nonzero (lossless)."""
+    cols = _batch_extract_keys(codes, k, m, B)
+    sc = count_sort.count_presentineled(list(cols))
+    ccols, wts, n_u, over = count_sort.compact_marked(
+        tuple(sc.words.unbind(1)), sc.counts, sc.is_uniq, cap
+    )
+    return ccols, wts, n_u, over, cols
+
+
+def _init_acc_state(acc_cap: int, lanes: int, device: torch.device):
+    cols = tuple(torch.full((acc_cap,), -1, dtype=torch.int32, device=device)
+                 for _ in range(lanes))
+    zero = torch.zeros((), dtype=torch.int64, device=device)
+    return (cols, torch.zeros(acc_cap, dtype=torch.int32, device=device), zero, zero)
+
+
+def _acc_merge(parts: list, acc):
+    """One weighted merge: (raw or counted parts, accumulator) -> new
+    accumulator at fixed capacity.
+
+    parts: list of (cols tuple, wts | None); None means raw instances
+    (weight 1 where not sentinel).  The list is emptied once its parts are
+    concatenated, so their buffers are freed before the sort.
+    acc: (cols, wts, n_unique, overflow)."""
+    acc_cols, acc_wts, _, acc_over = acc
+    W = len(acc_cols)
+    acc_cap = acc_cols[0].shape[0]
+    mcols = [torch.cat([p[0][w] for p in parts] + [acc_cols[w]]) for w in range(W)]
+    wts = torch.cat(
+        [(c[W - 1] != -1).to(torch.int32) if wt is None else wt for c, wt in parts]
+        + [acc_wts]
+    )
+    parts.clear()
+    sc = count_sort.count_presentineled(mcols, weights=wts)
+    del mcols, wts
+    new_cols, new_wts, n_u, over = count_sort.compact_marked(
+        tuple(sc.words.unbind(1)), sc.counts, sc.is_uniq, acc_cap
+    )
+    return (new_cols, new_wts, torch.clamp(n_u, max=acc_cap), acc_over + over)
+
+
+class DeviceAccumulator:
+    """Device-resident cross-batch merging with deferred sorting.
+
+    Buffers RAW pre-sentineled key columns per batch (``add_raw``: no
+    per-batch sort), merges every ``fanin`` parts with ONE weighted count
+    sort + compaction into a fixed-capacity unique table, and spills the
+    table to the host (``host_spills``: numpy (words, counts, bins)
+    triples) when the distinct count outgrows ``acc_cap``.
+
+    Capacity pressure is tracked with conservative host-side upper bounds;
+    an exact (blocking) scalar read happens only when a spill decision
+    needs it.  ``unique_ub`` — a caller-asserted bound on total distinct
+    keys — sizes the table once and disables the room checks; the device
+    overflow counter still raises at finalize if the bound was wrong.
+    """
+
+    # pending-buffer device-memory budget behind the max_device_rows
+    # default: 192M buffered rows at W=2 (k <= 32), fewer rows for wider keys
+    PENDING_BYTE_BUDGET = 1_536_000_000
+
+    def __init__(
+        self,
+        k: int,
+        fanin: int = 16,
+        max_device_rows: int | None = None,
+        m: int = 10,
+        B: int = 512,
+        acc_cap: int | None = None,
+        unique_ub: int | None = None,
+        extra_lanes: int = 0,
+        device="cpu",
+    ):
+        self.k = k
+        self.W = num_words(k)  # k-mer key words (the binhash input)
+        # extra trailing key lanes ride every merge; valid rows never carry
+        # all-ones in them, so the sentinel stays collision-free for any k
+        self.lanes = self.W + extra_lanes
+        self.m = m
+        self.B = B
+        self.fanin = fanin
+        self.device = torch.device(device)
+        if max_device_rows is None:
+            max_device_rows = self.PENDING_BYTE_BUDGET // (4 * self.lanes)
+        self.max_device_rows = max_device_rows
+        if unique_ub is not None and acc_cap is None:
+            # next 64Ki granule + 2 granules of slack, floor 2^14
+            acc_cap = max(1 << 14, (-(-int(unique_ub) // (1 << 16)) + 2) * (1 << 16))
+        self.acc_cap = acc_cap  # sized from the first part when None
+        self.assume_fits = unique_ub is not None
+        self.state = None  # (cols tuple [acc_cap], wts, n_unique [], overflow [])
+        self.pending: list = []  # (cols tuple, wts | None)
+        self.rows = 0  # pending buffered rows
+        self._acc_ub = 0  # conservative bound on accumulated uniques
+        self._pend_ub = 0  # conservative bound on pending new uniques
+        self._wt_dev = 0  # bound on total instance weight on device
+        self.host_spills: list = []  # (words, counts, bins) numpy triples
+
+    def _init_state(self):
+        return _init_acc_state(self.acc_cap, self.lanes, self.device)
+
+    def add_raw(self, cols: tuple) -> None:
+        """Buffer one batch of pre-sentineled key columns (weight 1 each)."""
+        n = int(cols[0].shape[0])
+        self._append((tuple(cols), None), n, n)
+
+    def add_part(self, cols: tuple, wts: torch.Tensor) -> None:
+        """Buffer one pre-counted part: key columns with weights (0 on
+        sentinel rows), e.g. _batch_count_dedup output or a host table
+        from table_to_device.  The part's weight total (one device read)
+        bounds the device weight; the JAX version uses its row count,
+        which undercounts a compacted part."""
+        weight = int(wts.sum())
+        if weight > count_sort.WEIGHT_LIMIT:
+            raise ValueError(f"part weight {weight} exceeds WEIGHT_LIMIT")
+        self._append((tuple(cols), wts.to(torch.int32)), int(wts.shape[0]), weight)
+
+    def _append(self, part, n_new_ub: int, weight: int) -> None:
+        if self.acc_cap is None:
+            self.acc_cap = 1 << max(14, (2 * n_new_ub - 1).bit_length())
+        if self.state is None:
+            self.state = self._init_state()
+        if self._wt_dev + weight > count_sort.WEIGHT_LIMIT:
+            # int32 count wrap guard: bounds weights, not capacity, so it
+            # applies under assume_fits too
+            self._merge_pending()
+            stats = self._stats()
+            self._raise_if_lost(stats)
+            self._spill(stats)
+        self._ensure_room(n_new_ub)
+        self.pending.append(part)
+        self.rows += int(part[0][0].shape[0])
+        self._pend_ub += n_new_ub
+        self._wt_dev += weight
+        if len(self.pending) >= self.fanin or self.rows > self.max_device_rows:
+            self._merge_pending()
+
+    def _merge_pending(self) -> None:
+        if not self.pending:
+            return
+        parts, self.pending = self.pending, []
+        self.state = _acc_merge(parts, self.state)
+        self.rows = 0
+        self._acc_ub = min(self._acc_ub + self._pend_ub, self.acc_cap)
+        self._pend_ub = 0
+
+    def _ensure_room(self, incoming: int) -> None:
+        if self.assume_fits:
+            return  # caller asserted total uniques <= acc_cap; finalize verifies
+        if self._acc_ub + self._pend_ub + incoming <= self.acc_cap:
+            return
+        stats = self._stats()  # exact occupancy before deciding to spill
+        self._acc_ub = stats["n_unique"]
+        while self._acc_ub + self._pend_ub + incoming > self.acc_cap:
+            if self.pending:
+                # merge first: duplicates may collapse the pending bound
+                self._merge_pending()
+                stats = self._stats()
+                self._acc_ub = stats["n_unique"]
+            elif self._acc_ub > 0:
+                self._raise_if_lost(stats)
+                self._spill(stats)
+            else:
+                # a single part exceeds acc_cap: the device overflow
+                # counter records the loss and finalize raises
+                break
+
+    def _stats(self) -> dict:
+        if self.state is None:
+            return {"n_unique": 0, "overflow": 0}
+        n_u, over = torch.stack(self.state[2:]).tolist()
+        return {"n_unique": n_u, "overflow": over}
+
+    def _raise_if_lost(self, stats: dict) -> None:
+        if stats["overflow"]:
+            raise RuntimeError(
+                f"accumulator overflow: {stats['overflow']} uniques lost; "
+                f"raise acc_cap (= {self.acc_cap})"
+            )
+
+    def _spill(self, stats: dict) -> None:
+        """Move the accumulated table to host_spills and start a new one."""
+        n_u = stats["n_unique"]
+        if n_u:
+            cols, wts, _, _ = self.state
+            words = torch.stack([c[:n_u] for c in cols], 1)
+            bins = binhash.bins_from_words(words[:, : self.W], self.k, self.m, self.B)
+            self.host_spills.append(table_to_host(words, wts[:n_u], bins))
+        self.state = self._init_state()
+        self._acc_ub = 0
+        self._wt_dev = 0  # spilled weights left the device (pending is empty)
+
+    def finalize(self) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """-> (unique words [U, lanes] ascending, counts [U], bins [U]) on host."""
+        self._merge_pending()
+        stats = self._stats()
+        self._raise_if_lost(stats)
+        self._spill(stats)
+        if not self.host_spills:
+            return (
+                np.zeros((0, self.lanes), np.uint32),
+                np.zeros(0, np.int64),
+                np.zeros(0, np.int32),
+            )
+        if len(self.host_spills) == 1:
+            return self.host_spills[0]
+        return merge_partials(self.host_spills, self.lanes)
+
+
+def merge_partials(
+    parts: list[tuple[np.ndarray, np.ndarray, np.ndarray]], W: int
+) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Host merge of unique sorted (words, counts, bins) tables: the native
+    k-way heap merge (``fastkmer_tpu.output.native``) when it is built, else
+    numpy lexsort + reduceat."""
+    if len(parts) > 1:
+        from fastkmer_tpu.output import native as out_native
+
+        merged = out_native.merge_sorted_parts(parts, W)
+        if merged is not None:
+            return merged
+    words = np.concatenate([p[0] for p in parts], axis=0)
+    counts = np.concatenate([p[1] for p in parts], axis=0)
+    bins = np.concatenate([p[2] for p in parts], axis=0)
+    if words.shape[0] == 0:
+        return words, counts, bins
+    order = np.lexsort(tuple(words[:, w] for w in reversed(range(W))))
+    ws, cs, bs = words[order], counts[order], bins[order]
+    new = np.empty(ws.shape[0], dtype=bool)
+    new[0] = True
+    np.any(ws[1:] != ws[:-1], axis=1, out=new[1:])
+    starts = np.flatnonzero(new)
+    return ws[starts], np.add.reduceat(cs, starts), bs[starts]
+
+
+def count_batches(
+    batches: Iterable[tuple[np.ndarray, int, int]],
+    k: int,
+    m: int,
+    B: int,
+    timer: StageTimer | None = None,
+    device="cuda",
+    device_accumulate: bool | None = None,
+    unique_ub: int | None = None,
+    prededup: bool | None = None,
+) -> CountResult:
+    """Stream code batches through the device and return the merged table.
+
+    ``device_accumulate`` defaults to True on CUDA (and whenever
+    ``unique_ub`` or a forced ``prededup`` asks for the accumulator).
+    ``prededup``: per-batch count + compaction before accumulation.  None
+    (default) is adaptive: every 16th batch runs the dedup attempt as a
+    probe; a fit admits the compact part and its distinct ratio steers the
+    mode (engage below 0.24), decided DEDUP_LAG batches later; an overflow
+    at the npos/4 cap admits the batch's raw columns instead.  True/False
+    force the mode.
+    """
+    dev = resolve_device(device)
+    timer = timer or StageTimer()
+    parts = []
+    n_reads = 0
+    n_bases = 0
+    W = num_words(k)
+    if device_accumulate is None:
+        device_accumulate = unique_ub is not None or prededup is True or dev.type == "cuda"
+    # k % 16 == 0: the bare sentinel is ambiguous; the flag lane restores it
+    flagged = device_accumulate and not count_sort.sentinel_safe_for(k)
+    acc = (
+        DeviceAccumulator(k, m=m, B=B, unique_ub=unique_ub,
+                          extra_lanes=1 if flagged else 0, device=dev)
+        if device_accumulate
+        else None
+    )
+    PROBE_EVERY, ENGAGE_BELOW = 16, 0.24
+    DEDUP_LAG = int(os.environ.get("FASTKMER_DEDUP_LAG", "3"))
+    if flagged:
+        # the probe/dedup step is W-lane shaped: adaptive stays raw, a
+        # forced prededup is an error (never silently dropped)
+        if prededup is True:
+            raise NotImplementedError(
+                "single-chip prededup does not cover k % 16 == 0 (the "
+                "flagged-lane extraction); use adaptive"
+            )
+        prededup = False
+    dedup_mode = prededup is True
+    # dedup parts wait DEDUP_LAG batches and are admitted at a fixed
+    # dispatch-index lag, so mode flips and window flushes are a pure
+    # function of the input
+    dedup_pending: list = []  # (dispatch_idx, raw_cols, dcols, dwts, pos, n_u, over)
+    # merge windows stay single-kind (all raw or all dedup parts): a part
+    # of the other kind closes the open window first
+    window_kind: list = [None]
+
+    def _feed_window(kind: str, add) -> None:
+        if acc.pending and window_kind[0] != kind:
+            acc._merge_pending()
+        window_kind[0] = kind
+        add()
+
+    def _admit_dedup(entry) -> None:
+        nonlocal dedup_mode
+        _, raw_q, qcols, qwts, qpos, q_nu, q_over = entry
+        if int(q_over):
+            # the batch's compaction dropped uniques: admit its raw
+            # columns instead (lossless); adaptive mode disengages
+            _feed_window("raw", lambda: acc.add_raw(raw_q))
+            if prededup is None:
+                dedup_mode = False
+            return
+        _feed_window("dedup", lambda: acc.add_part(qcols, qwts))
+        if prededup is None:
+            dedup_mode = int(q_nu) / max(qpos, 1) < ENGAGE_BELOW
+
+    it = iter(batches)
+    batch_idx = -1
+    while True:
+        with timer.span("ingest_wait"):
+            item = next(it, None)
+        if item is None:
+            break
+        codes, nr, nb = item
+        batch_idx += 1
+        # admit lagged dedup parts first: decisions from batch
+        # j - DEDUP_LAG take effect on this batch's dispatch kind
+        if acc is not None and dedup_pending:
+            with _span(timer, "device_merge", dev):
+                while dedup_pending and dedup_pending[0][0] <= batch_idx - DEDUP_LAG:
+                    _admit_dedup(dedup_pending.pop(0))
+        probe = (
+            acc is not None
+            and prededup is None
+            and not dedup_mode
+            and batch_idx % PROBE_EVERY == 0
+        )
+        with _span(timer, "device_count", dev):
+            codes_t = torch.from_numpy(codes).to(dev)
+            if acc is not None and (dedup_mode or probe):
+                npos = codes.shape[0] * (codes.shape[1] - k + 1)
+                dcap = (npos + (-npos % (1 << 16))) // 4
+                dcols, dwts, d_nu, d_over, d_raw = _batch_count_dedup(
+                    codes_t, k, m, B, dcap
+                )
+            elif acc is not None:
+                cols = _batch_extract_keys(codes_t, k, m, B, flagged)
+            else:
+                parts.append(_batch_count(codes_t, k, m, B))
+        if acc is not None:
+            with _span(timer, "device_merge", dev):
+                if dedup_mode or probe:
+                    dedup_pending.append(
+                        (batch_idx, d_raw, dcols, dwts, npos, d_nu, d_over)
+                    )
+                else:
+                    _feed_window("raw", lambda: acc.add_raw(cols))
+        n_reads += nr
+        n_bases += nb
+    with _span(timer, "device_merge", dev):
+        while dedup_pending:  # drain in-flight dedup parts before finalize
+            _admit_dedup(dedup_pending.pop(0))
+    with _span(timer, "merge", dev):
+        if acc is not None:
+            words, counts, bins = acc.finalize()
+            if flagged:
+                words = words[:, :W]  # drop the constant flag lane
+        elif parts:
+            words, counts, bins = merge_partials(parts, W)
+        else:
+            words = np.zeros((0, W), np.uint32)
+            counts = np.zeros(0, np.int64)
+            bins = np.zeros(0, np.int32)
+    return CountResult(
+        words, counts, bins, int(counts.sum()), n_bases, n_reads, batch_idx + 1,
+        timer.as_dict(),
+    )
+
+
+def not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not yet ported to fastkmer_tpu_torch")
+
+
+def execute_job(
+    cfg: JobConfig,
+    verbose: bool = True,
+    checkpoint_dir: str | None = None,
+    trace_dir: str | None = None,
+    keep_table: bool = False,
+    unique_ub: int | None = None,
+    prededup: bool | None = None,
+    device="cuda",
+) -> CountResult:
+    """Count k-mers in cfg.dataset and (when cfg.write) write per-bin text
+    files, or counts.npz for ``use_kryo_serializer``, plus the manifest.
+
+    ``unique_ub``: caller-asserted bound on distinct k-mers (e.g. genome
+    length) for the sync-free accumulator feed; verified at finalize.
+    ``checkpoint_dir``, ``trace_dir``, ``keep_table`` and useHT=1 raise:
+    they are not ported yet."""
+    if cfg.use_ht:
+        raise not_ported("useHT=1 (the hash-table engine)")
+    if checkpoint_dir is not None:
+        raise not_ported("checkpoint_dir (batch-level resume)")
+    if trace_dir is not None:
+        raise not_ported("trace_dir (profiler traces)")
+    if keep_table:
+        raise not_ported("keep_table (the table.npz sidecar)")
+    dev = resolve_device(device)
+    timer = StageTimer(verbose=False)
+    if verbose:
+        print(cfg.describe())
+    batches = prefetched(
+        batching.batch_file(
+            cfg.dataset, cfg.sequence_type, cfg.k, cfg.reads_per_batch, cfg.read_len
+        )
+    )
+    res = count_batches(
+        batches, cfg.k, cfg.m, cfg.b, timer, device=dev,
+        unique_ub=unique_ub, prededup=prededup,
+    )
+    if cfg.write:
+        with timer.span("write_output"):
+            if cfg.use_kryo_serializer:
+                writer.write_binary_with_manifest(
+                    cfg.output_dir, dataclasses_dict(cfg), res.words,
+                    res.counts, res.bins, cfg.k,
+                )
+            else:
+                bin_hashes = writer.write_bin_files(
+                    cfg.output_dir, res.words, res.counts, res.bins, cfg.k,
+                    eof_sentinel=True,
+                )
+                manifest_mod.write_manifest(
+                    cfg.output_dir, dataclasses_dict(cfg), res.words,
+                    res.counts, res.bins, bin_hashes=bin_hashes,
+                )
+    return res._replace(timings=timer.as_dict())
+
+
+def dataclasses_dict(cfg: JobConfig) -> dict:
+    return {k: v for k, v in dataclasses.asdict(cfg).items() if not callable(v)}

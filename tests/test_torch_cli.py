@@ -1,0 +1,90 @@
+"""``python -m fastkmer_tpu_torch.cli`` vs ``python -m fastkmer_tpu.cli``:
+the same 13 positionals produce the same bytes; every flag that is not
+ported raises; ``--device cuda`` without a card raises."""
+
+import json
+import os
+
+import pytest
+
+pytest.importorskip("torch")
+pytest.importorskip("jax")
+
+import torch  # noqa: E402
+
+from fastkmer_tpu import cli as jcli  # noqa: E402
+from fastkmer_tpu_torch import cli as tcli  # noqa: E402
+
+from .golden.make_golden import B, K, M  # noqa: E402
+from .test_torch_pipeline import mixed_reads  # noqa: E402
+from .test_pipeline_e2e import write_fasta  # noqa: E402
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+GOLDEN_FA = os.path.join(HERE, "golden", "golden.fa")
+
+
+def _dir_bytes(d: str) -> dict[str, bytes]:
+    return {n: open(os.path.join(d, n), "rb").read() for n in sorted(os.listdir(d))}
+
+
+def _argv(fa, out, prefix="t_", k=K, m=M, b=B, use_ht="0", part=("0",), read_len=64):
+    return [str(k), str(m), "3", str(b), use_ht, "0", fa, out, prefix, "1", "0", *part,
+            "--reads-per-batch", "4", "--read-len", str(read_len)]
+
+
+def test_cli_cpu_reproduces_golden(tmp_path):
+    out = str(tmp_path) + "/"
+    assert tcli.main(_argv(GOLDEN_FA, out, "gold_") + ["--device", "cpu"]) == 0
+    got = _dir_bytes(os.path.join(out, f"gold_k{K}_m{M}_x3_b{B}_s0"))
+    got = {n: b for n, b in got.items() if n.startswith("bin")}
+    assert got == _dir_bytes(os.path.join(HERE, "golden", "expected"))
+
+
+def test_cli_matches_jax_cli(tmp_path):
+    """Same positionals (custom partitioner recorded as at --mesh 1), same
+    --prededup/--unique-ub: byte-identical directory, manifest included."""
+    fa = str(tmp_path / "in.fa")
+    write_fasta(fa, mixed_reads(11, n=40))
+    out = str(tmp_path) + "/"
+    argv = _argv(fa, out, "cp_", k=25, m=8, b=32, part=("1", "4"), read_len=256)
+    argv += ["--prededup", "on", "--unique-ub", "100000"]
+    d = os.path.join(out, "cp_k25_m8_x3_b32_s0")
+    stats = str(tmp_path / "stats.json")
+    assert jcli.main(argv + ["--platform", "cpu"]) == 0
+    want = _dir_bytes(d)
+    assert tcli.main(argv + ["--device", "cpu", "--stats-json", stats]) == 0
+    assert _dir_bytes(d) == want
+    summary = json.load(open(stats))
+    assert summary["sync_free_feed"] is True and summary["prededup"] == "on"
+    man = json.loads(want["manifest.json"])
+    assert man["config"]["use_custom_partitioner"] is True
+    assert man["config"]["num_partition_tasks"] == 4
+
+
+@pytest.mark.parametrize("extra,use_ht", [
+    (["--mesh", "4"], "0"),
+    (["--multiseq"], "0"),
+    (["--smer-transport"], "0"),
+    (["--checkpoint-dir", "ck"], "0"),
+    (["--checkpoint-interval", "2"], "0"),
+    (["--keep-table"], "0"),
+    (["--trace-dir", "tr"], "0"),
+    (["--distance-measure", "multisequence.KLDLog2"], "0"),
+    ([], "1"),
+])
+def test_unported_flags_raise(tmp_path, extra, use_ht):
+    argv = _argv(GOLDEN_FA, str(tmp_path) + "/", use_ht=use_ht) + ["--device", "cpu"]
+    with pytest.raises(NotImplementedError, match="not yet ported to fastkmer_tpu_torch"):
+        tcli.main(argv + extra)
+    assert not os.listdir(tmp_path)  # raised before any output
+
+
+def test_device_cuda_without_card_raises(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    argv = _argv(GOLDEN_FA, str(tmp_path) + "/")  # --device defaults to cuda
+    with pytest.raises(RuntimeError, match="cuda"):
+        tcli.main(argv)
+    with pytest.raises(RuntimeError, match="cuda"):
+        tcli.main(argv + ["--device", "cuda"])
+    assert not os.listdir(tmp_path)

@@ -1,0 +1,91 @@
+"""Card tests of fastkmer_tpu_torch, marked ``cuda``; each skips without a
+CUDA device.  The CUDA extract kernel is held against its plain torch
+version (bit-equality), and the count job on cuda against the same job on
+the CPU.  No jax is needed, so a machine with a card and no jax runs them
+without the jax-importing conftest:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from fastkmer_tpu.ingest import batch as batching  # noqa: E402
+from fastkmer_tpu_torch import pipeline  # noqa: E402
+from fastkmer_tpu_torch.ops import cuda_extract  # noqa: E402
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _codes(seed: int, R: int, L: int, k: int) -> np.ndarray:
+    """~2% N, an all-T row, a row of exactly k bases, a ragged tail."""
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, 4, size=(R, L), dtype=np.uint8)
+    codes[rng.random((R, L)) < 0.02] = 4
+    codes[0] = 3
+    codes[1:2, k:] = 4  # slices: rows past R are simply absent
+    codes[2:3, L - k // 2 :] = 4
+    return codes
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,m,flag", [(28, 10, False), (13, 4, False), (31, 8, False),
+                                      (55, 9, False), (155, 14, False),
+                                      (32, 10, True), (64, 11, True)])
+def test_kernel_matches_plain(cuda, k, m, flag):
+    for R, L in ((64, 1024), (3, k + 5), (1, k)):
+        codes = torch.from_numpy(_codes(k + R, R, L, k)).to(cuda)
+        before = cuda_extract.LAUNCHES
+        got = cuda_extract.extract_sentinel(codes, k, m, 64, flag_lane=flag)
+        torch.cuda.synchronize()
+        assert cuda_extract.LAUNCHES == before + 1
+        ref = cuda_extract.extract_sentinel_reference(codes, k, m, 64, flag_lane=flag)
+        assert len(got) == len(ref) == -(-k // 16) + int(flag)
+        for g, r in zip(got, ref):
+            assert g.is_cuda and g.dtype == torch.int32 and g.shape == (R * (L - k + 1),)
+            assert torch.equal(g, r)
+
+
+def _write_fasta(path: str, seed: int) -> None:
+    """Reads from both strands of a 4 kbp genome (duplication-heavy, so the
+    adaptive pre-dedup engages) plus distinct reads with Ns."""
+    rng = np.random.default_rng(seed)
+    genome = rng.integers(0, 4, 4096)
+    with open(path, "w") as f:
+        for i in range(600):
+            s = int(rng.integers(0, 4096 - 200))
+            read = genome[s : s + int(rng.integers(100, 200))]
+            if i % 2:
+                read = 3 - read[::-1]
+            if i % 3 == 0:
+                read = rng.integers(0, 5, int(rng.integers(20, 300)))
+            f.write(f">r{i}\n" + "".join("ACGTN"[c] for c in read) + "\n")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,m", [(28, 10), (32, 9), (97, 13)])
+@pytest.mark.parametrize("prededup", [None, False])
+def test_count_batches_cuda_matches_cpu(cuda, tmp_path, k, m, prededup):
+    fa = str(tmp_path / "reads.fa")
+    _write_fasta(fa, k)
+
+    def run(device):
+        return pipeline.count_batches(
+            batching.batch_file(fa, 0, k, 8, 1024), k, m, 64, device=device,
+            device_accumulate=True, prededup=prededup,
+        )
+
+    before = cuda_extract.LAUNCHES
+    got = run(cuda)
+    assert cuda_extract.LAUNCHES > before
+    want = run("cpu")
+    for a, b in zip(got[:3], want[:3]):
+        np.testing.assert_array_equal(a, b)
+    assert got.n_instances == want.n_instances > 0
