@@ -3,8 +3,9 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``fastkmer_tpu_torch/csrc`` at first use and
-drives the port's main path (the single-chip sort-engine count job).  Each
-phase raises on failure, so the process exits non-zero:
+drives the port's two paths: the single-chip sort-engine count job and the
+per-batch mesh count job with super-k-mer transport.  Each phase raises on
+failure, so the process exits non-zero:
 
 1. card: needs ``torch.cuda.is_available()``; prints nvidia-smi's name and
    power limit;
@@ -13,14 +14,27 @@ phase raises on failure, so the process exits non-zero:
    the card (``torch.equal``) for every listed (k, m), at [512, 4096] and a
    ragged [3, k+5], and at phase 5's [4096, 4096] for k=28, where both are
    timed with CUDA events;
+3b. full-mode kernel vs plain: ``extract_full`` against ``extract.extract``
+   on the card for the same (k, m) and shapes: ``valid`` equal, words, sigs
+   and bins equal where valid, bins in [0, B) everywhere; both timed at
+   [4096, 4096] for k in {28, 31, 55, 97, 155};
 4. slice parity: the CLI entry (``cli.main``) on a seeded ~4 Mbp FASTA
    with Ns, at k=28 and k=32, with ``--device cuda`` and ``--device cpu``;
    the output directories must be identical;
+4b. mesh parity: ``cli.main --mesh 4 --smer-transport`` with LPT placement
+   (``useCustomPartitioner=1 4``) on phase 4's FASTA at k=28, with
+   ``--device cuda`` (all four shards on ``cuda:0``) and ``--device cpu``:
+   identical output directories, and bin files identical to phase 4's;
 5. real size: ``cli.main`` on 150-base reads at 16x coverage of a
    16,777,216-base random genome, k=28 m=10 x=3 B=2048, write=1,
    4096 x 4096 batches; checks the kernel launches against the batches the
    run made, the manifest, the instance count against the valid windows
-   counted on the host, and the table's order.
+   counted on the host, and the table's order;
+6. the mesh at real size: phase 5's FASTA and arguments through
+   ``cli.main --mesh 4 --smer-transport`` with ``useCustomPartitioner=1 4``,
+   all four shards on one card: phase 5's checks, bin files identical to
+   phase 5's, and at least four full-mode launches per batch plus the
+   pre-pass's.
 
 The script imports only the port (``fastkmer_tpu_torch``), torch and numpy.
 
@@ -126,6 +140,19 @@ def read_bin_table(out_dir: str, k: int):
     return n_lines, total, ascending
 
 
+def same_bin_files(a: str, b: str) -> bool:
+    """The bin* files of two output directories are byte-identical (read
+    one pair at a time)."""
+    names = sorted(n for n in os.listdir(a) if n.startswith("bin"))
+    if names != sorted(n for n in os.listdir(b) if n.startswith("bin")):
+        return False
+    for n in names:
+        with open(os.path.join(a, n), "rb") as fa, open(os.path.join(b, n), "rb") as fb:
+            if fa.read() != fb.read():
+                return False
+    return True
+
+
 def time_ms(fn, iters: int) -> float:
     """Median milliseconds of ``fn`` on the card (CUDA events, warmed up)."""
     import torch
@@ -156,7 +183,7 @@ def main() -> int:
     sys.path.insert(0, REPO)
     try:
         from fastkmer_tpu_torch import api, cli
-        from fastkmer_tpu_torch.ops import cuda_extract
+        from fastkmer_tpu_torch.ops import cuda_extract, extract
     except ImportError as e:
         print(f"chip_smoke: the repository is not beside this script ({e})", file=sys.stderr)
         return 1
@@ -203,6 +230,42 @@ def main() -> int:
     log(f"[kernel] [4096, 4096] k=28: kernel {kernel_ms:.4f} ms "
         f"({gbytes / kernel_ms * 1e3:.1f} GB/s), plain {plain_ms:.4f} ms")
 
+    # --- 3b. full-mode kernel vs plain on the card ---------------------------
+    rng3b = np.random.default_rng(3)  # its own stream: phases 4-6 keep their data
+    full_err = 0
+    for k, m, _ in EXTRACT_CASES:
+        for R, L in ((512, 4096), (3, k + 5)):
+            codes = torch.from_numpy(random_codes(rng3b, R, L)).to(dev)
+            got = cuda_extract.extract_full(codes, k, m, 2048)
+            torch.cuda.synchronize()
+            ref = extract.extract(codes, k, m, 2048)
+            torch.cuda.synchronize()
+            check(torch.equal(got.valid, ref.valid), f"full: valid differs at k={k} [{R}, {L}]")
+            v = ref.valid
+            for name, g, r in (("words", got.words, ref.words), ("sigs", got.sigs, ref.sigs),
+                               ("bins", got.bins, ref.bins)):
+                if v.any():
+                    err = int((g[v].to(torch.int64) - r[v].to(torch.int64)).abs().max())
+                    full_err = max(full_err, err)
+                check(torch.equal(g[v], r[v]), f"full: {name} differ at k={k} m={m} [{R}, {L}]")
+            check(bool(((got.bins >= 0) & (got.bins < 2048)).all()),
+                  f"full: a bin outside [0, 2048) at k={k} [{R}, {L}]")
+        log(f"[full] k={k} m={m}: equal to plain where valid at [512, 4096] and [3, {k + 5}]")
+    big = torch.from_numpy(random_codes(rng3b, 4096, 4096)).to(dev)
+    full_times = {}
+    for k, m in ((28, 10), (31, 8), (55, 9), (97, 13), (155, 14)):
+        got = cuda_extract.extract_full(big, k, m, 2048)
+        ref = extract.extract(big, k, m, 2048)
+        check(torch.equal(got.valid, ref.valid) and torch.equal(got.bins, ref.bins),
+              f"full: kernel != plain at k={k} [4096, 4096]")
+        del got, ref
+        full_times[k] = (time_ms(lambda: cuda_extract.extract_full(big, k, m, 2048), 20),
+                         time_ms(lambda: extract.extract(big, k, m, 2048), 5))
+        log(f"[full] [4096, 4096] k={k}: kernel {full_times[k][0]:.4f} ms, "
+            f"plain {full_times[k][1]:.4f} ms")
+    full_ms, full_plain_ms = full_times[28]
+    del big
+
     # --- 4. slice parity: cuda vs cpu --------------------------------------
     with tempfile.TemporaryDirectory() as tmp:
         genome = rng.integers(0, 4, size=1 << 17, dtype=np.uint8)
@@ -227,6 +290,28 @@ def main() -> int:
             check(res["cuda"]["n_instances"] == valid_windows(reads, k),
                   f"k={k}: instances != valid windows")
             log(f"[parity] k={k}: {len(out['cuda'])} files byte-identical")
+            if k == 28:
+                single28 = res["cuda"]["output_dir"]
+
+        # --- 4b. mesh parity: cuda vs cpu vs the single device -------------
+        mesh_out = {}
+        for d in ("cuda", "cpu"):
+            argv = ["28", "10", "3", "2048", "0", "0", fa, tmp + "/", "mesh_", "1", "0",
+                    "1", "4", "--mesh", "4", "--smer-transport", "--device", d,
+                    "--reads-per-batch", "256", "--read-len", "4096", "--stats-json", stats]
+            t0 = time.perf_counter()
+            check(cli.main(argv) == 0, f"mesh {d}: cli.main failed")
+            summary = json.load(open(stats))
+            mesh_out[d] = dir_bytes(summary["output_dir"])
+            check(summary["placement"] == [f"{d}:0" if d == "cuda" else d] * 4,
+                  f"mesh {d}: placement {summary['placement']}")
+            log(f"[mesh parity] {d}: {summary['n_instances']} instances, "
+                f"{summary['n_unique']} distinct, cap {summary['exchange_cap']}, "
+                f"{time.perf_counter() - t0:.2f} s")
+        check(mesh_out["cuda"] == mesh_out["cpu"], "mesh: cuda and cpu output directories differ")
+        check(same_bin_files(summary["output_dir"], single28),
+              "mesh: bin files differ from the single-device output")
+        log(f"[mesh parity] {len(mesh_out['cuda'])} files cuda == cpu; bin files == single device")
 
     # --- 5. the CLI at real size --------------------------------------------
     with tempfile.TemporaryDirectory() as tmp:
@@ -247,10 +332,12 @@ def main() -> int:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         cuda_extract.LAUNCHES = 0
+        cuda_extract.FULL_LAUNCHES = 0
         t0 = time.perf_counter()
         rc = cli.main(argv)
         wall = time.perf_counter() - t0
         launches = cuda_extract.LAUNCHES
+        check(cuda_extract.FULL_LAUNCHES == 0, "the single-device path launched the full kernel")
         peak = torch.cuda.max_memory_allocated()
         check(rc == 0, f"cli.main returned {rc}")
         summary = json.load(open(stats))
@@ -273,16 +360,70 @@ def main() -> int:
             f"without write_output {n_bases / count_s / 1e9:.4f} Gbp/s")
         log(f"[real] stage timings: {json.dumps(summary['timings'])}")
         log(f"[real] peak device memory {peak / 2**30:.2f} GiB")
+        out5 = out_dir
+
+        # --- 6. the mesh at real size: 4 shards, all on this card -------------
+        argv6 = ["28", "10", "3", "2048", "0", "0", fa, tmp + "/", "mesh_", "1", "0", "1", "4",
+                 "--mesh", "4", "--smer-transport", "--device", "cuda",
+                 "--reads-per-batch", "4096", "--read-len", "4096",
+                 "--unique-ub", str(GENOME), "--stats-json", stats]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        cuda_extract.LAUNCHES = 0
+        cuda_extract.FULL_LAUNCHES = 0
+        t0 = time.perf_counter()
+        rc = cli.main(argv6)
+        wall6 = time.perf_counter() - t0
+        full_launches = cuda_extract.FULL_LAUNCHES
+        peak6 = torch.cuda.max_memory_allocated()
+        check(rc == 0, f"mesh cli.main returned {rc}")
+        check(cuda_extract.LAUNCHES == 0, "the mesh path launched the count kernel")
+        s6 = json.load(open(stats))
+        out6 = s6["output_dir"]
+        nb6 = s6["n_batches"]
+        check(s6["placement"] == ["cuda:0"] * 4, f"placement {s6['placement']}")
+        check(nb6 == n_batches, f"mesh made {nb6} batches, the single device {n_batches}")
+        prepass = 4 * -(-nb6 // 100)  # 1-in-100 sampling (sample_fraction 0.01)
+        check(full_launches >= 4 * nb6 + prepass,
+              f"{full_launches} full-mode launches for {nb6} batches on 4 shards")
+        check(api.verify_output(out6)["ok"], "mesh: manifest verify failed")
+        n_lines, total, ascending = read_bin_table(out6, 28)
+        check(s6["n_bases"] == n_bases, "mesh: n_bases mismatch")
+        check(s6["n_instances"] == expect,
+              f"mesh: n_instances {s6['n_instances']} != valid windows {expect}")
+        check(total == expect, f"mesh: sum of written counts {total} != {expect}")
+        check(n_lines == s6["n_unique"], "mesh: written lines != n_unique")
+        check(ascending, "mesh: a bin file is not strictly ascending")
+        check(same_bin_files(out5, out6), "mesh: bin files differ from phase 5's")
+        count6 = wall6 - s6["timings"].get("write_output", 0.0)
+        log(f"[mesh real] {s6['n_unique']} distinct, {total} instances, {nb6} batches, "
+            f"{full_launches} full-mode launches; bin files == phase 5's")
+        log(f"[mesh real] end to end {wall6:.2f} s = {n_bases / wall6 / 1e9:.4f} Gbp/s; "
+            f"without write_output {n_bases / count6 / 1e9:.4f} Gbp/s (4 shards on one card)")
+        log(f"[mesh real] stage timings: {json.dumps(s6['timings'])}")
+        log(f"[mesh real] exchange_bytes {s6['exchange_bytes']}, final cap "
+            f"{s6['exchange_cap']}, retries {s6['exchange_retries']}, "
+            f"balance {json.dumps(s6['balance'])}")
+        log(f"[mesh real] peak device memory {peak6 / 2**30:.2f} GiB")
 
     print(json.dumps({"kernels": [{
         "name": "extract_count",
         "route": "cuda",
         "source": "fastkmer_tpu_torch/csrc/extract.cu",
-        "replaces": "fastkmer_tpu/ops/pallas_extract.py:108",
+        "replaces": 'fastkmer_tpu/ops/pallas_extract.py:108 (_mk_kernel mode="count")',
         "launches": launches,
         "max_abs_err": max_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,
+    }, {
+        "name": "extract_full",
+        "route": "cuda",
+        "source": "fastkmer_tpu_torch/csrc/extract.cu",
+        "replaces": 'fastkmer_tpu/ops/pallas_extract.py:108 (_mk_kernel mode="full")',
+        "launches": full_launches,
+        "max_abs_err": full_err,
+        "ms": full_ms,
+        "plain_ms": full_plain_ms,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -1,14 +1,15 @@
-"""High-level Python API — the port of ``fastkmer_tpu.api`` (single device)."""
+"""High-level Python API — the port of ``fastkmer_tpu.api``."""
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from fastkmer_tpu.config import JobConfig
 from fastkmer_tpu.core import bits
 from fastkmer_tpu.output import manifest
 
-from .pipeline import CountResult, execute_job
+from .pipeline import CountResult, execute_job, resolve_device
 
 
 def count_kmers(
@@ -44,6 +45,56 @@ def count_kmers(
     )
     return execute_job(
         cfg, verbose=False, unique_ub=unique_ub, prededup=prededup, device=device
+    )
+
+
+def count_kmers_distributed(
+    dataset: str,
+    n_devices: int | None = None,
+    k: int = 28,
+    m: int = 10,
+    bins: int = 2000,
+    sequence_type: int = 0,
+    use_ht: bool = False,
+    output_directory: str | None = None,
+    unique_ub: int | None = None,
+    prededup: bool | None = None,
+    use_custom_partitioner: bool = False,
+    checkpoint_dir: str | None = None,
+    device="cuda",
+    streaming: bool | None = None,
+    **kw,
+):
+    """Count canonical k-mers over a mesh of ``n_devices`` shards (the
+    library form of the ``--mesh`` CLI).
+
+    ``n_devices`` defaults to the visible CUDA devices (1 on the CPU); on
+    CUDA shard i lives on ``cuda:{i % device_count()}``.  ``streaming``
+    None/True selects the streaming counter, which is not ported yet:
+    pass ``streaming=False`` for per-batch k-mer transport.
+    ``use_custom_partitioner``: sampled LPT bin placement.  Returns
+    ``parallel.driver.DistributedResult``."""
+    from .parallel import driver, exchange
+
+    dev = resolve_device(device)
+    if n_devices is None:
+        n_devices = torch.cuda.device_count() if dev.type == "cuda" else 1
+    mesh = exchange.make_mesh(n_devices, dev)
+    cfg = JobConfig(
+        dataset=dataset,
+        output_directory=output_directory or "",
+        k=k,
+        m=m,
+        max_b=bins,
+        sequence_type=sequence_type,
+        use_ht=use_ht,
+        write=output_directory is not None,
+        use_custom_partitioner=use_custom_partitioner,
+        **kw,
+    )
+    return driver.execute_job_distributed(
+        cfg, mesh, verbose=False, unique_ub=unique_ub, prededup=prededup,
+        checkpoint_dir=checkpoint_dir, streaming=streaming,
     )
 
 

@@ -1,14 +1,19 @@
-"""Command-line driver — the port of ``fastkmer_tpu.cli`` (single device).
+"""Command-line driver — the port of ``fastkmer_tpu.cli``.
 
 Accepts the reference's 13 positional arguments in the same order:
 
     k m x B useHT sequenceType input output prefix write enableKryo
     useCustomPartitioner [numPartitionTasks]
 
-``--device {cuda,cpu}`` takes the place of ``--platform``.  Every flag that
-is not ported yet raises NotImplementedError instead of being ignored.
+``--device {cuda,cpu}`` takes the place of ``--platform``.  ``--mesh N``
+(N > 1) with ``--smer-transport`` runs the per-batch mesh job over N shards
+(on CUDA, shard i on ``cuda:{i % device_count()}``); ``useCustomPartitioner=1``
+places bins by the sampled LPT pre-pass there.  Every flag that is not
+ported yet raises NotImplementedError instead of being ignored.
 
     python -m fastkmer_tpu_torch.cli 28 10 3 512 0 0 in.fa out/ run_ 1 0 0
+    python -m fastkmer_tpu_torch.cli 28 10 3 512 0 0 in.fa out/ run_ 1 0 1 4 \
+        --mesh 4 --smer-transport
 """
 
 from __future__ import annotations
@@ -40,7 +45,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("enableKryo", type=int, choices=(0, 1),
                    help="1 = binary output (counts.npz)")
     p.add_argument("useCustomPartitioner", type=int, choices=(0, 1),
-                   help="recorded in the manifest; one device has no bin placement")
+                   help="1 = LPT bin placement from a sampled pre-pass (--mesh); "
+                        "recorded in the manifest")
     p.add_argument("numPartitionTasks", type=int, nargs="?", default=0)
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="cuda runs the extract kernel; cpu runs its plain version")
@@ -52,11 +58,14 @@ def build_parser() -> argparse.ArgumentParser:
                         "sync-free accumulator feed, verified at finalize")
     p.add_argument("--prededup", choices=("auto", "on", "off"), default="auto",
                    help="per-batch count+compact before accumulation")
+    p.add_argument("--mesh", type=int, default=1,
+                   help="run over this many shards; 1 = single device.  Needs "
+                        "--smer-transport: the streaming mesh counter is not ported")
+    p.add_argument("--smer-transport", action="store_true",
+                   help="ship super-k-mer records through the exchange instead of k-mers")
     # accepted for CLI parity with fastkmer_tpu; each raises until ported
     p.add_argument("--multiseq", action="store_true")
     p.add_argument("--distance-measure", default=None)
-    p.add_argument("--mesh", type=int, default=1)
-    p.add_argument("--smer-transport", action="store_true")
     p.add_argument("--checkpoint-dir", default=None)
     p.add_argument("--checkpoint-interval", type=int, default=None)
     p.add_argument("--keep-table", action="store_true")
@@ -67,10 +76,8 @@ def build_parser() -> argparse.ArgumentParser:
 def _check_ported(args) -> None:
     for flag, given in (
         ("useHT=1", args.useHT == 1),
-        ("--mesh > 1", args.mesh > 1),
         ("--multiseq", args.multiseq),
         ("--distance-measure", args.distance_measure is not None),
-        ("--smer-transport", args.smer_transport),
         ("--checkpoint-dir", args.checkpoint_dir is not None),
         ("--checkpoint-interval", args.checkpoint_interval is not None),
         ("--keep-table", args.keep_table),
@@ -78,6 +85,11 @@ def _check_ported(args) -> None:
     ):
         if given:
             raise not_ported(flag)
+    if args.smer_transport and args.mesh <= 1:
+        raise NotImplementedError(
+            "--smer-transport selects the mesh exchange payload; use "
+            "--mesh N (single-chip runs have no exchange)"
+        )
 
 
 def main(argv=None) -> int:
@@ -99,11 +111,27 @@ def main(argv=None) -> int:
         reads_per_batch=args.reads_per_batch,
         read_len=args.read_len,
     )
-    res = execute_job(
-        cfg, unique_ub=args.unique_ub,
-        prededup={"auto": None, "on": True, "off": False}[args.prededup],
-        device=args.device,
-    )
+    prededup = {"auto": None, "on": True, "off": False}[args.prededup]
+    if args.mesh > 1:
+        from .parallel import driver, exchange
+
+        mesh = exchange.make_mesh(args.mesh, args.device)
+        res = driver.execute_job_distributed(
+            cfg, mesh, smer_transport=args.smer_transport,
+            unique_ub=args.unique_ub, prededup=prededup,
+        )
+        extra = {
+            "exchange_bytes": res.exchange_bytes,
+            "exchange_cap": res.exchange_cap,
+            "exchange_retries": res.exchange_retries,
+            "balance": res.balance,
+            "placement": [str(d) for d in mesh.devices],
+            "n_dedup_batches": res.n_dedup_batches,
+        }
+    else:
+        res = execute_job(cfg, unique_ub=args.unique_ub, prededup=prededup,
+                          device=args.device)
+        extra = {}
     summary = {
         "mode": "count",
         "mesh": args.mesh,
@@ -118,6 +146,7 @@ def main(argv=None) -> int:
         "timings": res.timings,
         "sync_free_feed": args.unique_ub is not None,
         "prededup": args.prededup,
+        **extra,
     }
     print(json.dumps(summary, indent=2))
     if args.stats_json:

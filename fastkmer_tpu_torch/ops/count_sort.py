@@ -123,6 +123,58 @@ def count_presentineled(cols: list, weights: torch.Tensor | None = None) -> Sort
     )
 
 
+def count_sorted(
+    words: torch.Tensor,
+    bins: torch.Tensor | None,
+    valid: torch.Tensor,
+    weights: torch.Tensor | None = None,
+    sentinel_safe: bool = False,
+) -> SortedCounts:
+    """words [N, W] int32, valid [N] bool -> SortedCounts.
+
+    ``bins`` ([N] int32) and ``weights`` ([N] int32) are optional carried
+    columns: the result's bins are None without them, and counts are plain
+    run lengths without weights.  ``sentinel_safe=True`` (k % 16 != 0)
+    rewrites invalid rows to the all-ones sentinel and sorts the W words
+    alone; otherwise a validity flag (0 valid, 1 invalid) is a real leading
+    key, so an all-T k-mer never merges with an invalid row."""
+    W = words.shape[1]
+    values: list = []
+    if bins is not None:
+        values.append(bins)
+    if weights is not None:
+        values.append(torch.where(valid, weights.to(torch.int32), 0))
+    if sentinel_safe:
+        keys = [torch.where(valid, words[:, w], -1) for w in range(W)]
+        skeys, svals = sort_columns(keys, tuple(values))
+        swords = skeys
+        svalid = swords[W - 1] != -1
+    else:
+        flag = (~valid).to(torch.int32)
+        keys = [flag] + [words[:, w] for w in range(W)]
+        skeys, svals = sort_columns(keys, tuple(values))
+        swords = skeys[1:]
+        svalid = skeys[0] == 0
+    del keys
+    is_uniq, counts, n_valid = _mark_and_count(
+        skeys, svalid, svals[-1] if weights is not None else None
+    )
+    return SortedCounts(
+        words=torch.stack(swords, dim=1),
+        bins=svals[0] if bins is not None else None,
+        is_uniq=is_uniq,
+        counts=counts,
+        n_valid=n_valid,
+    )
+
+
+def bin_histogram(bins: torch.Tensor, valid: torch.Tensor, B: int) -> torch.Tensor:
+    """Per-bin k-mer instance counts ([B] int32) of the valid rows."""
+    return torch.bincount(
+        torch.where(valid, bins, B), minlength=B + 1
+    )[:B].to(torch.int32)
+
+
 def compact_marked(cols: tuple, counts: torch.Tensor, is_uniq: torch.Tensor, out_cap: int):
     """Move the marked rows of a SORTED run view to the front, in order, at
     fixed capacity.

@@ -1,0 +1,239 @@
+"""Distributed job driver — the port of ``fastkmer_tpu.parallel.driver``'s
+per-batch host-compaction path (super-k-mer transport, or k-mer transport
+with ``streaming=False``):
+
+    host ingest -> [R, L] batches, R rounded up to a multiple of n    (host)
+      -> LPT pre-pass on a 1-in-round(1/sample_fraction) sample of batches,
+         or hash placement; exchange cap from the sampled histogram   (device)
+      -> per batch: shard_batch -> step (full-mode extract kernel, route,
+         exchange, owner count); resize-and-retry on dropped rows      (device)
+      -> compact_shard_counts: each shard's unique rows to the host   (device -> host)
+      -> per-shard merge_partials, then one lexsort                   (host)
+      -> per-bin text or npz output + manifest                        (host)
+
+The streaming device-resident counter (the JAX default for k-mer
+transport), useHT=1, checkpoints, ``keep_table`` and profiler traces raise
+``not_ported``; a forced ``prededup`` raises as it does in the JAX package.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+
+from fastkmer_tpu.config import JobConfig
+from fastkmer_tpu.core.bits import num_words
+from fastkmer_tpu.ingest import batch as batching
+from fastkmer_tpu.ingest.prefetch import prefetched
+from fastkmer_tpu.parallel import partitioner
+from fastkmer_tpu.utils.timing import StageTimer
+
+from .. import pipeline
+from ..pipeline import _span, not_ported
+from . import exchange
+
+
+class DistributedResult(NamedTuple):
+    words: np.ndarray
+    counts: np.ndarray
+    bins: np.ndarray
+    n_instances: int
+    n_bases: int
+    n_reads: int
+    owner_map: np.ndarray
+    balance: dict
+    exchange_bytes: int
+    timings: dict
+    n_dedup_batches: int = 0  # streaming only (not ported): always 0 here
+    n_batches: int = 0  # code batches streamed through the mesh
+    exchange_cap: int = 0  # the per-(source, destination) cap of the last step
+    exchange_retries: int = 0  # batches re-run at a doubled cap
+
+
+def _check_ported(cfg: JobConfig, streaming: bool, checkpoint_dir, keep_table: bool,
+                  trace_dir, prededup) -> None:
+    if cfg.use_ht:
+        raise not_ported("useHT=1 (the hash-table engine)")
+    if streaming:
+        raise not_ported(
+            "the streaming mesh counter (parallel.stream.DistributedCounter: "
+            "k-mer transport with streaming=True, the default without super-k-mer "
+            "transport)"
+        )
+    if checkpoint_dir is not None:
+        raise not_ported("checkpoint_dir (batch-level resume)")
+    if keep_table:
+        raise not_ported("keep_table (the table.npz sidecar)")
+    if trace_dir is not None:
+        raise not_ported("trace_dir (profiler traces)")
+    if prededup is True:
+        raise NotImplementedError(
+            "prededup requires the streaming mesh path (sort engine, k-mer "
+            "transport); the per-batch smer/HT paths have no dedup step"
+        )
+
+
+def execute_job_distributed(
+    cfg: JobConfig,
+    mesh: exchange.Mesh,
+    cap: int | None = None,
+    smer_transport: bool = False,
+    smax: int = 64,
+    verbose: bool = True,
+    streaming: bool | None = None,
+    checkpoint_dir: str | None = None,
+    unique_ub: int | None = None,
+    keep_table: bool = False,
+    prededup: bool | None = None,
+    trace_dir: str | None = None,
+) -> DistributedResult:
+    """Count cfg.dataset over ``mesh`` and (when cfg.write) write the same
+    per-bin files, counts.npz and manifest as the single-device job.
+
+    ``streaming`` defaults to True without ``smer_transport`` (as in the
+    JAX package), and the streaming counter is not ported: pass
+    ``streaming=False`` for per-batch k-mer transport.  ``unique_ub`` makes
+    the feed sync-free: no per-batch read of the drop counter and no retry;
+    the run's total is checked once at the end and raises if a row was
+    dropped.  ``cap`` fixes the starting per-(source, destination) capacity."""
+    if streaming is None:
+        streaming = not smer_transport and not cfg.use_ht
+    _check_ported(cfg, streaming, checkpoint_dir, keep_table, trace_dir, prededup)
+    timer = StageTimer()
+    n = mesh.size
+    devs = mesh.devices
+    k, m, b = cfg.k, cfg.m, cfg.b
+    if verbose:
+        print(cfg.describe())
+        print(f"mesh: {n} shards on {', '.join(map(str, devs))}, "
+              f"transport={'super-k-mer' if smer_transport else 'k-mer'}")
+
+    R, L = cfg.reads_per_batch, cfg.read_len
+    if R % n:
+        R = -(-R // n) * n  # rows divide over the shards
+
+    def batches():
+        return batching.batch_file(cfg.dataset, cfg.sequence_type, k, R, L)
+
+    # --- optional LPT pre-pass on a sample of batches ---
+    hist = np.zeros(b, dtype=np.int64)
+    if cfg.use_custom_partitioner:
+        est = exchange.estimate_bin_sizes(mesh, k, m, b)
+        take = max(1, int(round(1.0 / max(cfg.sample_fraction, 1e-9))))
+        with _span(timer, "lpt_prepass", *devs):
+            for i, (codes, _, _) in enumerate(batches()):
+                if i % take == 0:  # deterministic 1-in-take sampling
+                    hist += est(exchange.shard_batch(mesh, codes)).cpu().numpy()
+        # LPT over numPartitionTasks partitions, then tasks -> shards
+        # round-robin; T == n when unset
+        T = cfg.num_partition_tasks or n
+        owner_map = (partitioner.lpt_owner_map(hist, T, b) % n).astype(np.int32)
+        balance = partitioner.balance_stats(hist, owner_map, n)
+    else:
+        owner_map = partitioner.hash_owner_map(b, n)
+        balance = {"sampled": False}
+
+    # --- capacity from the sampled histogram (slack 2x, retried on overflow)
+    positions = (R // n) * (L - k + 1)
+    cap_limit = positions if not smer_transport else positions + 1
+    if cap is None:
+        if not hist.any():
+            # hash placement: sample ONE batch for capacity sizing
+            est = exchange.estimate_bin_sizes(mesh, k, m, b)
+            with _span(timer, "cap_sizing", *devs):
+                for codes, _, _ in batches():
+                    hist += est(exchange.shard_batch(mesh, codes)).cpu().numpy()
+                    break
+        cap = partitioner.size_exchange_cap(hist, owner_map, n, positions)
+        if smer_transport:
+            cap = min(cap + 1, cap_limit)  # records <= k-mers per (src, dst)
+
+    def build_step(c: int):
+        if smer_transport:
+            return exchange.build_distributed_count_smer(mesh, k, m, b, c, smax, owner_map)
+        return exchange.build_distributed_count(mesh, k, m, b, c, owner_map)
+
+    def step_bytes(c: int) -> int:
+        return exchange.exchange_bytes_per_step(n, c, k, smax if smer_transport else None)
+
+    step = build_step(cap)
+    per_chip_parts: dict[int, list] = {}
+    n_reads = n_bases = xbytes = retries = n_batches = 0
+    sync_free = unique_ub is not None
+    dropped_total = None  # device scalar under sync_free, read once at the end
+    for codes, nr, nb in prefetched(batches()):
+        with _span(timer, "device_step", *devs):
+            shards = exchange.shard_batch(mesh, codes)
+            sc = step(shards)
+        # batches are independent here, so overflow recovery is a straight
+        # resize-and-retry of the same shards
+        while not sync_free and int(sc.dropped):
+            if cap >= cap_limit:
+                raise RuntimeError(
+                    f"exchange overflow at worst-case cap={cap}: "
+                    f"{int(sc.dropped)} entries dropped"
+                )
+            xbytes += step_bytes(cap)
+            cap = min(cap * 2, cap_limit)
+            retries += 1
+            if verbose:
+                print(f"exchange overflow; retrying batch at cap={cap}")
+            step = build_step(cap)
+            sc = None  # free the failed step's buffers before the retry
+            with _span(timer, "device_step", *devs):
+                sc = step(shards)
+        if sync_free:
+            dropped_total = sc.dropped if dropped_total is None else dropped_total + sc.dropped
+        xbytes += step_bytes(cap)
+        with _span(timer, "host_compact", *devs):
+            for c, part in exchange.compact_shard_counts(sc, with_chips=True):
+                per_chip_parts.setdefault(c, []).append(part)
+        del sc, shards
+        n_reads += nr
+        n_bases += nb
+        n_batches += 1
+    _check_dropped(dropped_total, cap)
+
+    W = num_words(k)
+    with timer.span("merge"):
+        merged = [
+            pipeline.merge_partials(per_chip_parts[c], W)
+            for c in sorted(per_chip_parts)
+            if per_chip_parts[c]
+        ]
+        merged = [p for p in merged if p[0].shape[0]]
+        if merged:
+            words = np.concatenate([p[0] for p in merged])
+            counts = np.concatenate([p[1] for p in merged])
+            bins = np.concatenate([p[2] for p in merged])
+            order = np.lexsort(tuple(words[:, w] for w in reversed(range(W))))
+            words, counts, bins = words[order], counts[order], bins[order]
+        else:
+            words = np.zeros((0, W), np.uint32)
+            counts = np.zeros(0, np.int64)
+            bins = np.zeros(0, np.int32)
+
+    if cfg.write:
+        with timer.span("write_output"):
+            pipeline.write_output(cfg, words, counts, bins)
+    return DistributedResult(
+        words, counts, bins, int(counts.sum()), n_bases, n_reads,
+        owner_map, balance, xbytes, timer.as_dict(),
+        n_batches=n_batches, exchange_cap=cap, exchange_retries=retries,
+    )
+
+
+def _check_dropped(dropped_total, cap: int) -> None:
+    """Sync-free (unique_ub) feed: one read of the run's accumulated
+    exchange-drop counter; any drop is fatal (the batches are gone, so no
+    retry is possible)."""
+    if dropped_total is None:
+        return
+    total = int(dropped_total)
+    if total:
+        raise RuntimeError(
+            f"sync-free per-batch run dropped {total} exchange entries at "
+            f"cap={cap}; re-run without unique_ub (per-batch retry) or with "
+            "a larger cap"
+        )

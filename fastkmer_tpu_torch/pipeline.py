@@ -58,13 +58,14 @@ def resolve_device(device) -> torch.device:
 
 
 @contextlib.contextmanager
-def _span(timer: StageTimer, name: str, dev: torch.device):
-    """Timer span that waits for the device at its end on CUDA, so each
-    span holds its own device work rather than the work queued before it."""
+def _span(timer: StageTimer, name: str, *devs: torch.device):
+    """Timer span that waits for its CUDA devices at its end, so each span
+    holds its own device work rather than the work queued before it."""
     with timer.span(name):
         yield
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+        for dev in dict.fromkeys(devs):
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
 
 
 def table_to_device(words: np.ndarray, counts: np.ndarray, bins: np.ndarray, device):
@@ -534,21 +535,24 @@ def execute_job(
     )
     if cfg.write:
         with timer.span("write_output"):
-            if cfg.use_kryo_serializer:
-                writer.write_binary_with_manifest(
-                    cfg.output_dir, dataclasses_dict(cfg), res.words,
-                    res.counts, res.bins, cfg.k,
-                )
-            else:
-                bin_hashes = writer.write_bin_files(
-                    cfg.output_dir, res.words, res.counts, res.bins, cfg.k,
-                    eof_sentinel=True,
-                )
-                manifest_mod.write_manifest(
-                    cfg.output_dir, dataclasses_dict(cfg), res.words,
-                    res.counts, res.bins, bin_hashes=bin_hashes,
-                )
+            write_output(cfg, res.words, res.counts, res.bins)
     return res._replace(timings=timer.as_dict())
+
+
+def write_output(cfg: JobConfig, words: np.ndarray, counts: np.ndarray, bins: np.ndarray) -> None:
+    """Per-bin text files with the EOF sentinel, or counts.npz for
+    ``use_kryo_serializer``, plus the manifest, into cfg.output_dir."""
+    if cfg.use_kryo_serializer:
+        writer.write_binary_with_manifest(
+            cfg.output_dir, dataclasses_dict(cfg), words, counts, bins, cfg.k,
+        )
+        return
+    bin_hashes = writer.write_bin_files(
+        cfg.output_dir, words, counts, bins, cfg.k, eof_sentinel=True,
+    )
+    manifest_mod.write_manifest(
+        cfg.output_dir, dataclasses_dict(cfg), words, counts, bins, bin_hashes=bin_hashes,
+    )
 
 
 def dataclasses_dict(cfg: JobConfig) -> dict:

@@ -1,6 +1,8 @@
 """``python -m fastkmer_tpu_torch.cli`` vs ``python -m fastkmer_tpu.cli``:
 the same 13 positionals produce the same bytes; every flag that is not
-ported raises; ``--device cuda`` without a card raises."""
+ported raises; ``--device cuda`` without a card raises.  The mesh CLI
+(``--mesh N --smer-transport``) is held against the JAX CLI by
+``test_torch_mesh_cli.py``."""
 
 import json
 import os
@@ -73,8 +75,12 @@ def test_cli_matches_jax_cli(tmp_path):
     ([], "1"),
 ])
 def test_unported_flags_raise(tmp_path, extra, use_ht):
+    """--mesh 4 alone is the streaming mesh counter (not ported);
+    --smer-transport alone has no exchange to shape (the JAX CLI's error)."""
     argv = _argv(GOLDEN_FA, str(tmp_path) + "/", use_ht=use_ht) + ["--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="not yet ported to fastkmer_tpu_torch"):
+    match = ("use --mesh N" if extra == ["--smer-transport"]
+             else "not yet ported to fastkmer_tpu_torch")
+    with pytest.raises(NotImplementedError, match=match):
         tcli.main(argv + extra)
     assert not os.listdir(tmp_path)  # raised before any output
 

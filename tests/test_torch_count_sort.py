@@ -104,3 +104,64 @@ def test_bins_from_words(k, m, B):
     np.testing.assert_array_equal(
         sigs.numpy(), np.asarray(jbh.signatures_from_words(jnp.asarray(words), k, m))
     )
+
+
+def kmer_rows(seed: int, k: int, n_distinct: int = 400):
+    """N packed k-mer rows (uint32 [N, W]) drawn with heavy duplication from
+    random k-mers, ~10% invalid; at k % 16 == 0 some valid AND some invalid
+    rows are all-T (all-ones words, the bare sentinel).  Bins are a function
+    of the words, as a k-mer's bin is."""
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, 4, size=(n_distinct, k)).astype(np.uint8)
+    codes[0] = 3
+    pool = np.array([bits.pack_kmer_words(c, k) for c in codes], np.uint32)
+    pick = rng.integers(0, n_distinct, N)
+    pick[:8] = 0  # all-T rows, valid and invalid
+    words = pool[pick]
+    valid = rng.random(N) >= 0.1
+    valid[:8] = [True, False] * 4
+    bins = (pick % 61).astype(np.int32)
+    weights = rng.integers(1, 500, N).astype(np.int32)
+    return words, valid, bins, weights
+
+
+@pytest.mark.parametrize("k,sentinel_safe", [(28, True), (28, False), (13, True), (32, False),
+                                             (64, False)])
+@pytest.mark.parametrize("with_bins,with_weights", [(False, False), (True, False),
+                                                    (False, True), (True, True)])
+def test_count_sorted(k, sentinel_safe, with_bins, with_weights):
+    words, valid, bins, weights = kmer_rows(k + 3, k)
+    jb = jnp.asarray(bins) if with_bins else None
+    jw = jnp.asarray(weights) if with_weights else None
+    j = jcs.count_sorted(jnp.asarray(words), jb, jnp.asarray(valid), jw,
+                         sentinel_safe=sentinel_safe)
+    t = tcs.count_sorted(
+        torch.from_numpy(words.view(np.int32)),
+        torch.from_numpy(bins) if with_bins else None,
+        torch.from_numpy(valid),
+        torch.from_numpy(weights) if with_weights else None,
+        sentinel_safe=sentinel_safe,
+    )
+    iu = np.asarray(j.is_uniq)
+    np.testing.assert_array_equal(t.is_uniq.numpy(), iu)
+    np.testing.assert_array_equal(t.words.numpy().view(np.uint32)[iu], np.asarray(j.words)[iu])
+    np.testing.assert_array_equal(t.counts.numpy(), np.asarray(j.counts))
+    assert int(t.n_valid) == int(j.n_valid)
+    assert (t.bins is None) == (j.bins is None)
+    if with_bins:
+        np.testing.assert_array_equal(t.bins.numpy()[iu], np.asarray(j.bins)[iu])
+    if k % 16 == 0:
+        # the valid all-T row is counted apart from the invalid all-T rows
+        allt = (t.words.numpy().view(np.uint32) == 0xFFFFFFFF).all(1) & iu
+        assert allt.sum() == 1
+
+
+def test_bin_histogram():
+    rng = np.random.default_rng(3)
+    B = 64
+    bins = rng.integers(0, B, 5000).astype(np.int32)
+    valid = rng.random(5000) < 0.8
+    want = np.asarray(jcs.bin_histogram(jnp.asarray(bins), jnp.asarray(valid), B))
+    got = tcs.bin_histogram(torch.from_numpy(bins), torch.from_numpy(valid), B)
+    assert got.dtype == torch.int32 and got.shape == (B,)
+    np.testing.assert_array_equal(got.numpy(), want)

@@ -1,8 +1,9 @@
 """Card tests of fastkmer_tpu_torch, marked ``cuda``; each skips without a
-CUDA device.  The CUDA extract kernel is held against its plain torch
-version (bit-equality), and the count job on cuda against the same job on
-the CPU.  No jax is needed, so a machine with a card and no jax runs them
-without the jax-importing conftest:
+CUDA device.  The CUDA extract kernels (count and full mode) are held
+against their plain torch versions (bit-equality, where valid for full
+mode's words and sigs), and the count job and a 2-shard mesh job on cuda
+against the same jobs on the CPU.  No jax is needed, so a machine with a
+card and no jax runs them without the jax-importing conftest:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
@@ -12,9 +13,11 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from fastkmer_tpu.config import JobConfig  # noqa: E402
 from fastkmer_tpu.ingest import batch as batching  # noqa: E402
 from fastkmer_tpu_torch import pipeline  # noqa: E402
-from fastkmer_tpu_torch.ops import cuda_extract  # noqa: E402
+from fastkmer_tpu_torch.ops import cuda_extract, extract  # noqa: E402
+from fastkmer_tpu_torch.parallel import driver, exchange  # noqa: E402
 
 
 @pytest.fixture
@@ -89,3 +92,49 @@ def test_count_batches_cuda_matches_cpu(cuda, tmp_path, k, m, prededup):
     for a, b in zip(got[:3], want[:3]):
         np.testing.assert_array_equal(a, b)
     assert got.n_instances == want.n_instances > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,m", [(28, 10), (13, 4), (31, 8), (32, 9), (55, 9), (97, 13),
+                                 (155, 14), (256, 15)])
+def test_full_kernel_matches_plain(cuda, k, m):
+    B = 2000
+    for R, L in ((64, 1024), (3, k + 5), (1, k)):
+        codes = torch.from_numpy(_codes(k + R + 1, R, L, k)).to(cuda)
+        before = cuda_extract.FULL_LAUNCHES
+        got = cuda_extract.extract_full(codes, k, m, B)
+        torch.cuda.synchronize()
+        assert cuda_extract.FULL_LAUNCHES == before + 1
+        ref = extract.extract(codes, k, m, B)
+        n = R * (L - k + 1)
+        assert got.words.shape == (n, -(-k // 16)) and got.valid.dtype == torch.bool
+        assert torch.equal(got.valid, ref.valid)
+        v = ref.valid
+        for a, b in ((got.words, ref.words), (got.sigs, ref.sigs), (got.bins, ref.bins)):
+            assert a.is_cuda and a.dtype == torch.int32
+            assert torch.equal(a[v], b[v])
+        assert bool(((got.bins >= 0) & (got.bins < B)).all())  # in range everywhere
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("smer", [True, False])
+def test_mesh_job_cuda_matches_cpu(cuda, tmp_path, smer):
+    fa = str(tmp_path / "reads.fa")
+    _write_fasta(fa, 28)
+    cfg = JobConfig(dataset=fa, output_directory="", k=28, m=10, max_b=64,
+                    reads_per_batch=8, read_len=1024, write=False,
+                    use_custom_partitioner=True, num_partition_tasks=4)
+
+    def run(device):
+        return driver.execute_job_distributed(
+            cfg, exchange.make_mesh(2, device), smer_transport=smer, streaming=False,
+            verbose=False,
+        )
+
+    before = cuda_extract.FULL_LAUNCHES
+    got = run(cuda)
+    assert cuda_extract.FULL_LAUNCHES > before
+    want = run("cpu")
+    for f in ("words", "counts", "bins", "owner_map"):
+        np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
+    assert got.exchange_bytes == want.exchange_bytes and got.n_instances > 0

@@ -5,10 +5,13 @@ outputs, so the tolerance is bit-equality.
 * the plain ``extract`` vs ``fastkmer_tpu.ops.extract.extract``;
 * ``extract_sentinel_reference`` vs the Pallas count-mode kernel
   (``extract_pallas_sentinel``) run in interpret mode;
-* the flag lane vs ``pipeline._batch_extract_keys_flagged`` (k % 16 == 0).
+* the flag lane vs ``pipeline._batch_extract_keys_flagged`` (k % 16 == 0);
+* the plain ``extract`` (full mode's plain version) vs the Pallas full-mode
+  kernel (``extract_pallas``) run in interpret mode, where valid;
+* ``extract_full`` on a CPU tensor: the plain result, no launch.
 
-The CUDA kernel itself is held against its plain version on the card by
-``test_torch_cuda.py``.
+The CUDA kernels themselves are held against their plain versions on the
+card by ``test_torch_cuda.py``.
 """
 
 import numpy as np
@@ -129,3 +132,55 @@ def test_wrapper_validates_inputs():
         cuda_extract.extract_sentinel(codes, 32, 10, 64)
     with pytest.raises(ValueError, match="read_len"):
         cuda_extract.extract_sentinel(codes, 41, 10, 64)
+
+
+FULL_CASES = [(13, 4), (28, 10), (31, 8), (32, 9), (55, 9), (97, 13)]
+
+
+@pytest.mark.parametrize("k,m", FULL_CASES)
+def test_plain_extract_matches_pallas_full_interpret(k, m):
+    from fastkmer_tpu.ops import pallas_extract as pex
+
+    B = 64
+    L = 96 if k <= 64 else 160
+    codes = make_codes(k + 7, 12, L, k)
+    ref = pex.extract_pallas(jnp.asarray(codes), k, m, B, block_rows=4, interpret=True)
+    got = tex.extract(torch.from_numpy(codes), k, m, B)
+    va = np.asarray(ref.valid)
+    np.testing.assert_array_equal(got.valid.numpy(), va)
+    np.testing.assert_array_equal(got.words.numpy().view(np.uint32)[va], np.asarray(ref.words)[va])
+    np.testing.assert_array_equal(got.sigs.numpy().view(np.uint32)[va], np.asarray(ref.sigs)[va])
+    np.testing.assert_array_equal(got.bins.numpy()[va], np.asarray(ref.bins)[va])
+    bins = got.bins.numpy()
+    assert ((bins >= 0) & (bins < B)).all() and va.any() and not va.all()
+
+
+@pytest.mark.parametrize("k,m", FULL_CASES)
+def test_extract_full_on_cpu_is_the_plain_version(k, m):
+    R, L, B = 5, k + 30, 97
+    codes = torch.from_numpy(make_codes(k, R, L, k))
+    before = cuda_extract.FULL_LAUNCHES
+    got = cuda_extract.extract_full(codes, k, m, B)
+    assert cuda_extract.FULL_LAUNCHES == before  # a CPU tensor never launches
+    want = tex.extract(codes, k, m, B)
+    n, W = R * (L - k + 1), -(-k // 16)
+    assert got.words.shape == (n, W) and got.words.dtype == torch.int32
+    for f in ("bins", "sigs"):
+        assert getattr(got, f).shape == (n,) and getattr(got, f).dtype == torch.int32
+    assert got.valid.shape == (n,) and got.valid.dtype == torch.bool
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_extract_full_validates_inputs():
+    codes = torch.zeros((2, 300), dtype=torch.uint8)
+    with pytest.raises(ValueError, match="k=257"):
+        cuda_extract.extract_full(codes, 257, 10, 64)
+    with pytest.raises(ValueError, match="m=16"):
+        cuda_extract.extract_full(codes, 28, 16, 64)
+    with pytest.raises(ValueError, match="m=28"):
+        cuda_extract.extract_full(codes, 28, 28, 64)
+    with pytest.raises(ValueError, match="B=0"):
+        cuda_extract.extract_full(codes, 28, 10, 0)
+    with pytest.raises(TypeError):
+        cuda_extract.extract_full(codes.to(torch.int32), 28, 10, 64)
