@@ -4,16 +4,17 @@ A port of ``fastkmer_tpu`` (JAX on a TPU) to PyTorch on an NVIDIA H100.
 The JAX package stays the reference: for the same input this package writes
 byte-identical per-bin files, ``counts.npz`` arrays and manifests.
 
-Only the device half is ported.  The JAX-free host modules of
-``fastkmer_tpu`` are imported, never copied:
+The package owns copies of the host modules it needs, at the same paths
+as in ``fastkmer_tpu`` so that each has a visible counterpart:
 
 * ``config.JobConfig`` (positionals, derived bin count, output naming)
-* ``core.bits`` (ASCII codes, packing, host reference bit ops)
+* ``core.bits`` (ASCII codes, word counts, decode for output)
 * ``ingest.{batch,fasta,prefetch,native}`` (FASTA/FASTQ -> [R, L] code batches)
 * ``output.{writer,manifest,native}`` (per-bin files, npz, manifests, k-way merge)
-* ``utils.timing.StageTimer``
+* ``parallel.partitioner`` (LPT and hash bin placement, exchange cap sizing)
+* ``utils.{timing,nativebuild}`` (``StageTimer``; g++ builds of the native parts)
 
-This package imports ``torch`` and never ``jax``.  Packed k-mer words are
+This package imports ``torch`` and neither ``jax`` nor ``fastkmer_tpu``.  Packed k-mer words are
 ``torch.int32`` tensors that hold the uint32 bit pattern (the all-ones
 sentinel is -1); see ``core.tbits``.
 """

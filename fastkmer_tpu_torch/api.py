@@ -5,10 +5,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from fastkmer_tpu.config import JobConfig
-from fastkmer_tpu.core import bits
-from fastkmer_tpu.output import manifest
-
+from .config import JobConfig
+from .core import bits
+from .output import manifest
 from .pipeline import CountResult, execute_job, resolve_device
 
 
@@ -70,8 +69,9 @@ def count_kmers_distributed(
 
     ``n_devices`` defaults to the visible CUDA devices (1 on the CPU); on
     CUDA shard i lives on ``cuda:{i % device_count()}``.  ``streaming``
-    None/True selects the streaming counter, which is not ported yet:
-    pass ``streaming=False`` for per-batch k-mer transport.
+    None/True runs the streaming counter (tables stay on the devices across
+    batches); ``streaming=False`` the per-batch k-mer transport.
+    ``prededup``: the streaming counter's dedup transport (None adaptive).
     ``use_custom_partitioner``: sampled LPT bin placement.  Returns
     ``parallel.driver.DistributedResult``."""
     from .parallel import driver, exchange

@@ -6,14 +6,16 @@ Accepts the reference's 13 positional arguments in the same order:
     useCustomPartitioner [numPartitionTasks]
 
 ``--device {cuda,cpu}`` takes the place of ``--platform``.  ``--mesh N``
-(N > 1) with ``--smer-transport`` runs the per-batch mesh job over N shards
-(on CUDA, shard i on ``cuda:{i % device_count()}``); ``useCustomPartitioner=1``
-places bins by the sampled LPT pre-pass there.  Every flag that is not
-ported yet raises NotImplementedError instead of being ignored.
+(N > 1) runs the mesh job over N shards (on CUDA, shard i on
+``cuda:{i % device_count()}``): the streaming counter, or with
+``--smer-transport`` the per-batch job with super-k-mer transport;
+``useCustomPartitioner=1`` places bins by the sampled LPT pre-pass there.
+``--prededup`` sets the streaming counter's dedup transport, or the single
+device's pre-dedup.  Every flag that is not ported yet raises
+NotImplementedError instead of being ignored.
 
     python -m fastkmer_tpu_torch.cli 28 10 3 512 0 0 in.fa out/ run_ 1 0 0
-    python -m fastkmer_tpu_torch.cli 28 10 3 512 0 0 in.fa out/ run_ 1 0 1 4 \
-        --mesh 4 --smer-transport
+    python -m fastkmer_tpu_torch.cli 28 10 3 512 0 0 in.fa out/ run_ 1 0 1 4 --mesh 4
 """
 
 from __future__ import annotations
@@ -22,8 +24,7 @@ import argparse
 import json
 import sys
 
-from fastkmer_tpu.config import JobConfig
-
+from .config import JobConfig
 from .pipeline import execute_job, not_ported
 
 
@@ -57,10 +58,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="asserted bound on distinct k-mers (e.g. genome length): "
                         "sync-free accumulator feed, verified at finalize")
     p.add_argument("--prededup", choices=("auto", "on", "off"), default="auto",
-                   help="per-batch count+compact before accumulation")
+                   help="per-batch count+compact before accumulation (single "
+                        "device), or the streaming mesh's dedup transport")
     p.add_argument("--mesh", type=int, default=1,
-                   help="run over this many shards; 1 = single device.  Needs "
-                        "--smer-transport: the streaming mesh counter is not ported")
+                   help="run over this many shards with the streaming counter "
+                        "(or --smer-transport's per-batch job); 1 = single device")
     p.add_argument("--smer-transport", action="store_true",
                    help="ship super-k-mer records through the exchange instead of k-mers")
     # accepted for CLI parity with fastkmer_tpu; each raises until ported

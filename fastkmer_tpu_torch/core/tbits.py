@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 
 M32 = 0xFFFFFFFF
+BIAS = 1 << 31
 
 
 def as_u32(x: torch.Tensor) -> torch.Tensor:
@@ -77,3 +78,13 @@ def hash_to_bucket(s: torch.Tensor, B: int) -> torch.Tensor:
 def reverse16(x: torch.Tensor) -> torch.Tensor:
     """Reverse the sixteen 2-bit fields of each 32-bit value (no complement)."""
     return _swap_fields(as_u32(x))
+
+
+def pair_key(hi: torch.Tensor, lo: torch.Tensor | None) -> torch.Tensor:
+    """Order-preserving int64 sort key of one or two uint32 lanes (int32
+    bits): the high lane sign-biased, so signed int64 order is unsigned
+    (hi, lo) order."""
+    h = hi.to(torch.int64)
+    if lo is None:
+        return h & M32
+    return ((h ^ BIAS) << 32) | (lo.to(torch.int64) & M32)

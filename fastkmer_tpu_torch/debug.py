@@ -18,12 +18,11 @@ from collections import defaultdict
 import numpy as np
 import torch
 
-from fastkmer_tpu.config import JobConfig
-from fastkmer_tpu.core import bits
-from fastkmer_tpu.ingest import batch as batching
-from fastkmer_tpu.parallel import partitioner
-
+from .config import JobConfig
+from .core import bits
+from .ingest import batch as batching
 from .ops import count_sort, cuda_extract, superkmer
+from .parallel import partitioner
 from .pipeline import resolve_device
 
 

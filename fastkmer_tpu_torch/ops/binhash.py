@@ -10,9 +10,8 @@ from __future__ import annotations
 
 import torch
 
-from fastkmer_tpu.core.bits import BASES_PER_WORD
-
 from ..core import tbits
+from ..core.bits import BASES_PER_WORD
 
 
 def _mmer_at(wcols: list, m: int, j: int) -> torch.Tensor:

@@ -8,23 +8,24 @@ lanes pack into one key, the high lane sign-biased so that signed int64
 order is unsigned lane order.  Up to two lanes take one sort; more lanes
 take LSD passes of stable argsort, least significant key first.  Run
 totals are differences of a prefix sum read at run tails (``_mark_and_count``);
-compaction is a mask plus a prefix sum.
+compaction is a mask plus a prefix sum, or, under FASTKMER_PALLAS_COMPACT=1,
+the JAX package's block-sort route through kernel C (``ops.cuda_sort``).
 """
 
 from __future__ import annotations
 
+import os
 from typing import NamedTuple
 
 import torch
 
-from ..core.tbits import M32
+from ..core.tbits import BIAS, pair_key
+from . import cuda_sort
 
 # Run totals must stay < 2^31 per call (the accumulator keeps int32
 # weights); accumulators force a host spill when their conservative
 # instance bound reaches this (2^27 of headroom below the wrap).
 WEIGHT_LIMIT = (1 << 31) - (1 << 27)
-
-_BIAS = 1 << 31
 
 
 class SortedCounts(NamedTuple):
@@ -44,30 +45,22 @@ class SortedCounts(NamedTuple):
     n_valid: torch.Tensor
 
 
-def _pair_key(hi: torch.Tensor, lo: torch.Tensor | None) -> torch.Tensor:
-    """Order-preserving int64 key of one or two uint32 lanes (int32 bits)."""
-    h = hi.to(torch.int64)
-    if lo is None:
-        return h & M32
-    return ((h ^ _BIAS) << 32) | (lo.to(torch.int64) & M32)
-
-
 def sort_columns(cols: list, values: tuple = ()) -> tuple[list, tuple]:
     """Sort rows lexicographically (unsigned) over the key columns; carry
     ``values`` along.  Returns (sorted key columns, sorted values)."""
     W = len(cols)
     pairs = [(cols[i], cols[i + 1] if i + 1 < W else None) for i in range(0, W, 2)]
     if len(pairs) == 1:
-        key, order = torch.sort(_pair_key(*pairs[0]))
+        key, order = torch.sort(pair_key(*pairs[0]))
         if W == 1:
             scols = [key.to(torch.int32)]
         else:
             # int64 -> int32 keeps the low 32 bits
-            scols = [((key >> 32) ^ _BIAS).to(torch.int32), key.to(torch.int32)]
+            scols = [((key >> 32) ^ BIAS).to(torch.int32), key.to(torch.int32)]
         return scols, tuple(v[order] for v in values)
     order = None
     for hi, lo in reversed(pairs):
-        key = _pair_key(hi if order is None else hi[order],
+        key = pair_key(hi if order is None else hi[order],
                         None if lo is None else (lo if order is None else lo[order]))
         idx = torch.sort(key, stable=True).indices
         order = idx if order is None else order[idx]
@@ -175,27 +168,83 @@ def bin_histogram(bins: torch.Tensor, valid: torch.Tensor, B: int) -> torch.Tens
     )[:B].to(torch.int32)
 
 
-def compact_marked(cols: tuple, counts: torch.Tensor, is_uniq: torch.Tensor, out_cap: int):
+def compact_marked(cols: tuple, counts: torch.Tensor, is_uniq: torch.Tensor, out_cap: int,
+                   block: int = 8192, block_sort: bool = False):
     """Move the marked rows of a SORTED run view to the front, in order, at
     fixed capacity.
 
     Returns (cols_out tuple of [out_cap], counts_out [out_cap], n_u,
     overflow), the last two 0-d int64 tensors.  Rows past n_u are
     sentinel/0; marked rows beyond out_cap are dropped and counted in
-    ``overflow``.  No host sync: rows are scattered to their prefix-sum
-    rank, and rows that are unmarked or over capacity land in one discard
-    slot."""
-    dev = counts.device
+    ``overflow``.  No host sync.
+
+    By default rows are scattered to their prefix-sum rank, and rows that
+    are unmarked or over capacity land in one discard slot.  ``block_sort``
+    takes the JAX package's route instead (its ``pallas=True``): unmarked
+    rows become the all-ones sentinel with count 0, each ``block`` of rows
+    is sorted by ``cuda_sort.sort_blocks`` (the kernel on CUDA, its plain
+    version on the CPU), which moves a block's live rows to its front in
+    order, and the blocks' live prefixes are scattered to their clipped
+    prefix-sum offsets.  The rows are padded with sentinel rows of count 0
+    to a block multiple, and ``block`` shrinks to the power of two >= N
+    (at least 1024) for a short input.  Both routes give the same result;
+    the sentinel must sort after every live row (sentinel-safe keys, or a
+    trailing lane never all-ones on live rows)."""
+    if block_sort:
+        return _compact_blocks(cols, counts, is_uniq, out_cap, block)
     rank = torch.cumsum(is_uniq, 0) - 1
-    keep = is_uniq & (rank < out_cap)
-    dest = torch.where(keep, rank, out_cap)
+    dest = torch.where(is_uniq & (rank < out_cap), rank, out_cap)
+    return _place(tuple(cols) + (counts,), dest, out_cap, is_uniq.sum())
+
+
+def _place(lanes: tuple, dest: torch.Tensor, out_cap: int, n_u: torch.Tensor):
+    """Scatter key lanes + the count lane to ``dest`` (out_cap: discard)
+    in sentinel/0-filled [out_cap] outputs -> compact_marked's tuple."""
     out = []
-    for c, fill in [(c, -1) for c in cols] + [(counts, 0)]:
-        o = torch.full((out_cap + 1,), fill, dtype=c.dtype, device=dev)
+    for i, c in enumerate(lanes):
+        o = torch.full((out_cap + 1,), -1 if i < len(lanes) - 1 else 0, dtype=c.dtype,
+                       device=c.device)
         o.scatter_(0, dest, c)
         out.append(o[:out_cap])
-    n_u = is_uniq.sum()
     return tuple(out[:-1]), out[-1], n_u, torch.clamp(n_u - out_cap, min=0)
+
+
+def _compact_blocks(cols: tuple, counts: torch.Tensor, is_uniq: torch.Tensor, out_cap: int,
+                    block: int):
+    """compact_marked's block-sort route (JAX count_sort.py:265-321)."""
+    N = counts.shape[0]
+    W = len(cols)
+    dev = counts.device
+    block = min(block, max(cuda_sort.MIN_BLOCK, 1 << max(N - 1, 0).bit_length()))
+    pad = -N % block
+    # one [W + 1, N + pad] buffer: unmarked and padding rows are the
+    # sentinel with count 0; the block sort runs on it in place
+    buf = torch.full((W + 1, N + pad), -1, dtype=torch.int32, device=dev)
+    dead = ~is_uniq
+    for i, c in enumerate(cols):
+        buf[i, :N].copy_(c).masked_fill_(dead, -1)
+    buf[W, :N].copy_(counts).masked_fill_(dead, 0)
+    buf[W, N:] = 0
+    del dead
+    blocked = cuda_sort.sort_blocks_(buf, W, block)
+    nb = (N + pad) // block
+    live = (blocked[W - 1] != -1).view(nb, block)
+    h = live.sum(1)
+    off = torch.clamp(torch.cumsum(h, 0) - h, max=out_cap)
+    pos = off[:, None] + torch.arange(block, device=dev)[None, :]
+    dest = torch.where(live & (pos < out_cap), pos, out_cap).view(-1)
+    del live, pos
+    return _place(blocked, dest, out_cap, h.sum())
+
+
+def block_sort_opt_in() -> bool:
+    """FASTKMER_PALLAS_COMPACT=1 routes compact_marked's compaction through
+    the block sort, as it routes the JAX package's through its Pallas
+    kernel (``fastkmer_tpu.ops.count_sort.pallas_compact_opt_in``): the
+    same environment means the same thing to both packages.  In this
+    package it selects the CUDA block sort kernel (ops.cuda_sort).  Off by
+    default."""
+    return os.environ.get("FASTKMER_PALLAS_COMPACT") == "1"
 
 
 def sentinel_safe_for(k: int) -> bool:

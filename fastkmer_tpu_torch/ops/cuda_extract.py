@@ -23,8 +23,7 @@ import functools
 
 import torch
 
-from fastkmer_tpu.core.bits import num_words
-
+from ..core.bits import num_words
 from ..utils import cudabuild
 from . import extract
 

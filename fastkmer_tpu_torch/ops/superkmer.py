@@ -27,9 +27,8 @@ from typing import NamedTuple
 
 import torch
 
-from fastkmer_tpu.core.bits import BASES_PER_WORD, num_words
-
 from ..core import tbits
+from ..core.bits import BASES_PER_WORD, num_words
 from . import extract as ex_mod
 from . import windows
 

@@ -1,19 +1,24 @@
-"""Distributed job driver — the port of ``fastkmer_tpu.parallel.driver``'s
-per-batch host-compaction path (super-k-mer transport, or k-mer transport
-with ``streaming=False``):
+"""Distributed job driver — the port of ``fastkmer_tpu.parallel.driver``.
 
     host ingest -> [R, L] batches, R rounded up to a multiple of n    (host)
       -> LPT pre-pass on a 1-in-round(1/sample_fraction) sample of batches,
          or hash placement; exchange cap from the sampled histogram   (device)
-      -> per batch: shard_batch -> step (full-mode extract kernel, route,
-         exchange, owner count); resize-and-retry on dropped rows      (device)
-      -> compact_shard_counts: each shard's unique rows to the host   (device -> host)
-      -> per-shard merge_partials, then one lexsort                   (host)
-      -> per-bin text or npz output + manifest                        (host)
 
-The streaming device-resident counter (the JAX default for k-mer
-transport), useHT=1, checkpoints, ``keep_table`` and profiler traces raise
-``not_ported``; a forced ``prededup`` raises as it does in the JAX package.
+then one of two paths:
+
+* streaming (the default for k-mer transport): ``stream.DistributedCounter``
+  keeps each shard's table on its device across batches (exchange per
+  batch, fan-in merges, spills past ``acc_cap``) and pulls it once at the
+  end; a zero sequence lane keeps the sentinel unambiguous at k % 16 == 0;
+* per batch (super-k-mer transport, or ``streaming=False``): a step per
+  batch (full-mode extract kernel, route, exchange, owner count;
+  resize-and-retry on dropped rows), each shard's unique rows to the host
+  (``compact_shard_counts``), per-shard ``merge_partials`` and one lexsort.
+
+Both end in the per-bin text or npz output + manifest of the single-device
+job.  useHT=1, checkpoints, ``keep_table`` and profiler traces raise
+``not_ported``; a forced ``prededup`` off the streaming path raises as it
+does in the JAX package.
 """
 
 from __future__ import annotations
@@ -22,16 +27,15 @@ from typing import NamedTuple
 
 import numpy as np
 
-from fastkmer_tpu.config import JobConfig
-from fastkmer_tpu.core.bits import num_words
-from fastkmer_tpu.ingest import batch as batching
-from fastkmer_tpu.ingest.prefetch import prefetched
-from fastkmer_tpu.parallel import partitioner
-from fastkmer_tpu.utils.timing import StageTimer
-
 from .. import pipeline
+from ..config import JobConfig
+from ..core.bits import num_words
+from ..ingest import batch as batching
+from ..ingest.prefetch import prefetched
+from ..ops import count_sort
+from ..utils.timing import StageTimer
 from ..pipeline import _span, not_ported
-from . import exchange
+from . import exchange, partitioner, stream
 
 
 class DistributedResult(NamedTuple):
@@ -45,29 +49,24 @@ class DistributedResult(NamedTuple):
     balance: dict
     exchange_bytes: int
     timings: dict
-    n_dedup_batches: int = 0  # streaming only (not ported): always 0 here
+    n_dedup_batches: int = 0  # streaming: batches shipped through the dedup transport
     n_batches: int = 0  # code batches streamed through the mesh
     exchange_cap: int = 0  # the per-(source, destination) cap of the last step
-    exchange_retries: int = 0  # batches re-run at a doubled cap
+    exchange_retries: int = 0  # per batch: batches re-run at a doubled cap;
+    # streaming: merge windows replayed at a doubled cap
 
 
 def _check_ported(cfg: JobConfig, streaming: bool, checkpoint_dir, keep_table: bool,
                   trace_dir, prededup) -> None:
     if cfg.use_ht:
         raise not_ported("useHT=1 (the hash-table engine)")
-    if streaming:
-        raise not_ported(
-            "the streaming mesh counter (parallel.stream.DistributedCounter: "
-            "k-mer transport with streaming=True, the default without super-k-mer "
-            "transport)"
-        )
     if checkpoint_dir is not None:
         raise not_ported("checkpoint_dir (batch-level resume)")
     if keep_table:
         raise not_ported("keep_table (the table.npz sidecar)")
     if trace_dir is not None:
         raise not_ported("trace_dir (profiler traces)")
-    if prededup is True:
+    if prededup is True and not streaming:
         raise NotImplementedError(
             "prededup requires the streaming mesh path (sort engine, k-mer "
             "transport); the per-batch smer/HT paths have no dedup step"
@@ -82,6 +81,8 @@ def execute_job_distributed(
     smax: int = 64,
     verbose: bool = True,
     streaming: bool | None = None,
+    acc_cap: int | None = None,
+    fanin: int = 4,
     checkpoint_dir: str | None = None,
     unique_ub: int | None = None,
     keep_table: bool = False,
@@ -92,11 +93,14 @@ def execute_job_distributed(
     per-bin files, counts.npz and manifest as the single-device job.
 
     ``streaming`` defaults to True without ``smer_transport`` (as in the
-    JAX package), and the streaming counter is not ported: pass
-    ``streaming=False`` for per-batch k-mer transport.  ``unique_ub`` makes
-    the feed sync-free: no per-batch read of the drop counter and no retry;
-    the run's total is checked once at the end and raises if a row was
-    dropped.  ``cap`` fixes the starting per-(source, destination) capacity."""
+    JAX package); ``streaming=False`` with k-mer transport runs the
+    per-batch path.  ``acc_cap`` (default: room for two batches of distinct
+    k-mers per shard, a power of two) and ``fanin`` size the streaming
+    counter; ``prededup`` sets its dedup transport (None adaptive).
+    ``unique_ub`` makes the feed sync-free: no per-batch read of the drop
+    counter and no retry; the run's total is checked once at the end and
+    raises if a row was dropped.  ``cap`` fixes the starting
+    per-(source, destination) capacity."""
     if streaming is None:
         streaming = not smer_transport and not cfg.use_ht
     _check_ported(cfg, streaming, checkpoint_dir, keep_table, trace_dir, prededup)
@@ -148,6 +152,10 @@ def execute_job_distributed(
         cap = partitioner.size_exchange_cap(hist, owner_map, n, positions)
         if smer_transport:
             cap = min(cap + 1, cap_limit)  # records <= k-mers per (src, dst)
+
+    if streaming:
+        return _count_streaming(cfg, mesh, timer, batches, R, positions, cap, acc_cap, fanin,
+                                owner_map, balance, unique_ub, prededup)
 
     def build_step(c: int):
         if smer_transport:
@@ -221,6 +229,41 @@ def execute_job_distributed(
         words, counts, bins, int(counts.sum()), n_bases, n_reads,
         owner_map, balance, xbytes, timer.as_dict(),
         n_batches=n_batches, exchange_cap=cap, exchange_retries=retries,
+    )
+
+
+def _count_streaming(cfg: JobConfig, mesh: exchange.Mesh, timer: StageTimer, batches,
+                     R: int, positions: int, cap: int, acc_cap: int | None, fanin: int,
+                     owner_map: np.ndarray, balance: dict, unique_ub: int | None,
+                     prededup: bool | None) -> DistributedResult:
+    """The streaming branch of the JAX driver (driver.py:237-315)."""
+    # k % 16 == 0: a constant-zero seq lane keeps the sentinel unambiguous
+    flagged = not count_sort.sentinel_safe_for(cfg.k)
+    if acc_cap is None:
+        # room for ~2 batches of all-distinct k-mers per shard before a spill
+        acc_cap = 1 << max(14, (2 * mesh.size * positions - 1).bit_length())
+    ctr = stream.DistributedCounter(
+        mesh, cfg.k, cfg.m, cfg.b, cap, acc_cap, owner_map=owner_map, fanin=fanin,
+        with_seq=flagged, unique_ub=unique_ub, prededup=prededup,
+    )
+    zero_sids = np.zeros(R, np.int32) if flagged else None
+    n_batches = 0
+    for codes, nr, nb in prefetched(batches()):
+        with _span(timer, "device_step", *mesh.devices):
+            ctr.feed(codes, n_reads=nr, n_bases=nb, seq_ids=zero_sids)
+        n_batches += 1
+    with _span(timer, "merge", *mesh.devices):
+        words, counts, bins = ctr.finalize()
+        if flagged:
+            words = words[:, : num_words(cfg.k)]  # drop the zero lane
+    if cfg.write:
+        with timer.span("write_output"):
+            pipeline.write_output(cfg, words, counts, bins)
+    return DistributedResult(
+        words, counts, bins, int(counts.sum()), ctr.n_bases, ctr.n_reads,
+        owner_map, balance, ctr.exchange_bytes, timer.as_dict(),
+        n_dedup_batches=ctr.n_dedup_batches, n_batches=n_batches,
+        exchange_cap=ctr.cap, exchange_retries=ctr.n_retries,
     )
 
 

@@ -25,8 +25,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from fastkmer_tpu.core.bits import num_words
-
+from ..core.bits import num_words
 from ..ops import binhash, count_sort, cuda_extract, superkmer
 from ..pipeline import not_ported, resolve_device, table_to_host
 

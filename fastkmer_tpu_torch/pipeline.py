@@ -22,15 +22,14 @@ from typing import Iterable, NamedTuple
 import numpy as np
 import torch
 
-from fastkmer_tpu.config import JobConfig
-from fastkmer_tpu.core.bits import num_words
-from fastkmer_tpu.ingest import batch as batching
-from fastkmer_tpu.ingest.prefetch import prefetched
-from fastkmer_tpu.output import manifest as manifest_mod
-from fastkmer_tpu.output import writer
-from fastkmer_tpu.utils.timing import StageTimer
-
+from .config import JobConfig
+from .core.bits import num_words
+from .ingest import batch as batching
+from .ingest.prefetch import prefetched
 from .ops import binhash, count_sort, cuda_extract
+from .output import manifest as manifest_mod
+from .output import writer
+from .utils.timing import StageTimer
 
 
 class CountResult(NamedTuple):
@@ -119,7 +118,8 @@ def _batch_count_dedup(codes: torch.Tensor, k: int, m: int, B: int, cap: int):
     cols = _batch_extract_keys(codes, k, m, B)
     sc = count_sort.count_presentineled(list(cols))
     ccols, wts, n_u, over = count_sort.compact_marked(
-        tuple(sc.words.unbind(1)), sc.counts, sc.is_uniq, cap
+        tuple(sc.words.unbind(1)), sc.counts, sc.is_uniq, cap,
+        block_sort=count_sort.block_sort_opt_in(),
     )
     return ccols, wts, n_u, over, cols
 
@@ -131,9 +131,10 @@ def _init_acc_state(acc_cap: int, lanes: int, device: torch.device):
     return (cols, torch.zeros(acc_cap, dtype=torch.int32, device=device), zero, zero)
 
 
-def _acc_merge(parts: list, acc):
+def _acc_merge(parts: list, acc, block_sort: bool = False):
     """One weighted merge: (raw or counted parts, accumulator) -> new
-    accumulator at fixed capacity.
+    accumulator at fixed capacity.  ``block_sort`` compacts through the
+    block sort (count_sort.compact_marked, 32768-row blocks).
 
     parts: list of (cols tuple, wts | None); None means raw instances
     (weight 1 where not sentinel).  The list is emptied once its parts are
@@ -151,7 +152,8 @@ def _acc_merge(parts: list, acc):
     sc = count_sort.count_presentineled(mcols, weights=wts)
     del mcols, wts
     new_cols, new_wts, n_u, over = count_sort.compact_marked(
-        tuple(sc.words.unbind(1)), sc.counts, sc.is_uniq, acc_cap
+        tuple(sc.words.unbind(1)), sc.counts, sc.is_uniq, acc_cap,
+        block=1 << 15, block_sort=block_sort,
     )
     return (new_cols, new_wts, torch.clamp(n_u, max=acc_cap), acc_over + over)
 
@@ -186,7 +188,7 @@ class DeviceAccumulator:
         acc_cap: int | None = None,
         unique_ub: int | None = None,
         extra_lanes: int = 0,
-        device="cpu",
+        device="cuda",
     ):
         self.k = k
         self.W = num_words(k)  # k-mer key words (the binhash input)
@@ -196,7 +198,8 @@ class DeviceAccumulator:
         self.m = m
         self.B = B
         self.fanin = fanin
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
+        self.block_sort = count_sort.block_sort_opt_in()  # read once, as JAX does
         if max_device_rows is None:
             max_device_rows = self.PENDING_BYTE_BUDGET // (4 * self.lanes)
         self.max_device_rows = max_device_rows
@@ -256,7 +259,7 @@ class DeviceAccumulator:
         if not self.pending:
             return
         parts, self.pending = self.pending, []
-        self.state = _acc_merge(parts, self.state)
+        self.state = _acc_merge(parts, self.state, self.block_sort)
         self.rows = 0
         self._acc_ub = min(self._acc_ub + self._pend_ub, self.acc_cap)
         self._pend_ub = 0
@@ -328,10 +331,10 @@ def merge_partials(
     parts: list[tuple[np.ndarray, np.ndarray, np.ndarray]], W: int
 ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Host merge of unique sorted (words, counts, bins) tables: the native
-    k-way heap merge (``fastkmer_tpu.output.native``) when it is built, else
+    k-way heap merge (``output.native``) when it is built, else
     numpy lexsort + reduceat."""
     if len(parts) > 1:
-        from fastkmer_tpu.output import native as out_native
+        from .output import native as out_native
 
         merged = out_native.merge_sorted_parts(parts, W)
         if merged is not None:
@@ -521,7 +524,7 @@ def execute_job(
     if keep_table:
         raise not_ported("keep_table (the table.npz sidecar)")
     dev = resolve_device(device)
-    timer = StageTimer(verbose=False)
+    timer = StageTimer()
     if verbose:
         print(cfg.describe())
     batches = prefetched(
@@ -548,7 +551,7 @@ def write_output(cfg: JobConfig, words: np.ndarray, counts: np.ndarray, bins: np
         )
         return
     bin_hashes = writer.write_bin_files(
-        cfg.output_dir, words, counts, bins, cfg.k, eof_sentinel=True,
+        cfg.output_dir, words, counts, bins, cfg.k,
     )
     manifest_mod.write_manifest(
         cfg.output_dir, dataclasses_dict(cfg), words, counts, bins, bin_hashes=bin_hashes,

@@ -64,7 +64,7 @@ def test_cli_matches_jax_cli(tmp_path):
 
 
 @pytest.mark.parametrize("extra,use_ht", [
-    (["--mesh", "4"], "0"),
+    (["--mesh", "4", "--checkpoint-dir", "ck"], "0"),
     (["--multiseq"], "0"),
     (["--smer-transport"], "0"),
     (["--checkpoint-dir", "ck"], "0"),
@@ -75,8 +75,8 @@ def test_cli_matches_jax_cli(tmp_path):
     ([], "1"),
 ])
 def test_unported_flags_raise(tmp_path, extra, use_ht):
-    """--mesh 4 alone is the streaming mesh counter (not ported);
-    --smer-transport alone has no exchange to shape (the JAX CLI's error)."""
+    """Each unported flag raises, on the mesh too; --smer-transport alone
+    has no exchange to shape (the JAX CLI's error)."""
     argv = _argv(GOLDEN_FA, str(tmp_path) + "/", use_ht=use_ht) + ["--device", "cpu"]
     match = ("use --mesh N" if extra == ["--smer-transport"]
              else "not yet ported to fastkmer_tpu_torch")

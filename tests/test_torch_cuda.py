@@ -1,8 +1,10 @@
 """Card tests of fastkmer_tpu_torch, marked ``cuda``; each skips without a
-CUDA device.  The CUDA extract kernels (count and full mode) are held
-against their plain torch versions (bit-equality, where valid for full
-mode's words and sigs), and the count job and a 2-shard mesh job on cuda
-against the same jobs on the CPU.  No jax is needed, so a machine with a
+CUDA device.  The CUDA extract kernels (count and full mode) and the block
+sort kernel are held against their plain torch versions (bit-equality,
+where valid for full mode's words and sigs; keys bit-equal and row
+multisets equal per block for the sort), and the count job and 2-shard
+mesh jobs (per batch and streaming, with and without the block-sort
+compaction) on cuda against the same jobs on the CPU.  No jax is needed, so a machine with a
 card and no jax runs them without the jax-importing conftest:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -13,10 +15,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from fastkmer_tpu.config import JobConfig  # noqa: E402
-from fastkmer_tpu.ingest import batch as batching  # noqa: E402
 from fastkmer_tpu_torch import pipeline  # noqa: E402
-from fastkmer_tpu_torch.ops import cuda_extract, extract  # noqa: E402
+from fastkmer_tpu_torch.config import JobConfig  # noqa: E402
+from fastkmer_tpu_torch.ingest import batch as batching  # noqa: E402
+from fastkmer_tpu_torch.ops import cuda_extract, cuda_sort, extract  # noqa: E402
 from fastkmer_tpu_torch.parallel import driver, exchange  # noqa: E402
 
 
@@ -138,3 +140,65 @@ def test_mesh_job_cuda_matches_cpu(cuda, tmp_path, smer):
     for f in ("words", "counts", "bins", "owner_map"):
         np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
     assert got.exchange_bytes == want.exchange_bytes and got.n_instances > 0
+
+
+def _sort_lanes(seed: int, N: int, keys: int, vals: int) -> list:
+    """int32 lanes: keys with sentinels (all-ones) and many ties, values."""
+    rng = np.random.default_rng(seed)
+    lanes = []
+    for i in range(keys + vals):
+        c = rng.integers(-(1 << 31), 1 << 31, size=N, dtype=np.int64)
+        if i < keys:
+            c[rng.random(N) < 0.2] = -1
+            tie = rng.random(N) < 0.3
+            c[tie] = rng.integers(-2, 3, size=int(tie.sum()))
+        lanes.append(torch.from_numpy(c.astype(np.int32)))
+    return lanes
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("keys,vals", [(1, 0), (2, 1), (3, 1), (4, 0), (13, 1)])
+@pytest.mark.parametrize("block", [1024, 8192, 1 << 15])
+def test_block_sort_kernel_matches_plain(cuda, keys, vals, block):
+    lanes = _sort_lanes(keys * block + vals, 4 * block, keys, vals)
+    before = cuda_sort.LAUNCHES
+    got = cuda_sort.sort_blocks(tuple(c.to(cuda) for c in lanes), keys, block)
+    torch.cuda.synchronize()
+    assert cuda_sort.LAUNCHES == before + 1
+    ref = cuda_sort.sort_blocks_reference(tuple(lanes), keys, block)
+    for g, r in zip(got[:keys], ref[:keys]):
+        assert torch.equal(g.cpu(), r)
+    rows_g = torch.stack([g.cpu() for g in got], 1).view(-1, block, keys + vals)
+    rows_r = torch.stack(ref, 1).view(-1, block, keys + vals)
+    for b in range(rows_g.shape[0]):  # per-block row multisets
+        a = np.unique(rows_g[b].numpy(), axis=0, return_counts=True)
+        c = np.unique(rows_r[b].numpy(), axis=0, return_counts=True)
+        np.testing.assert_array_equal(a[0], c[0])
+        np.testing.assert_array_equal(a[1], c[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,m", [(28, 10), (32, 9)])
+@pytest.mark.parametrize("block_sort", [False, True])
+def test_streaming_mesh_cuda_matches_cpu(cuda, tmp_path, monkeypatch, k, m, block_sort):
+    fa = str(tmp_path / "reads.fa")
+    _write_fasta(fa, k)
+    cfg = JobConfig(dataset=fa, output_directory="", k=k, m=m, max_b=64,
+                    reads_per_batch=8, read_len=1024, write=False,
+                    use_custom_partitioner=True, num_partition_tasks=4)
+    if block_sort:
+        monkeypatch.setenv("FASTKMER_PALLAS_COMPACT", "1")
+
+    def run(device):
+        return driver.execute_job_distributed(cfg, exchange.make_mesh(2, device),
+                                              verbose=False, acc_cap=4096, fanin=2)
+
+    before = (cuda_extract.FULL_LAUNCHES, cuda_sort.LAUNCHES)
+    got = run(cuda)
+    assert cuda_extract.FULL_LAUNCHES > before[0]
+    assert (cuda_sort.LAUNCHES > before[1]) == block_sort
+    want = run("cpu")
+    for f in ("words", "counts", "bins", "owner_map"):
+        np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
+    assert got.exchange_bytes == want.exchange_bytes and got.n_instances > 0
+    assert got.n_dedup_batches == want.n_dedup_batches

@@ -4,6 +4,7 @@ fastkmer_tpu's on a JAX mesh of 8 virtual CPU devices, on the dataset of
 map, and a byte-identical output directory, for k-mer and super-k-mer
 transport under hash and LPT placement at k = 28 and 32.  Also: overflow
 retries, the sync-free feed's overflow error, and the knobs that raise.
+(The streaming path is held against JAX in ``test_torch_stream_driver.py``.)
 Integer outputs, so the tolerance is bit-equality."""
 
 import os
@@ -108,8 +109,8 @@ def test_sync_free_feed_raises_on_a_drop(dataset):
 
 
 @pytest.mark.parametrize("kw,use_ht,msg", [
-    ({}, False, "streaming mesh counter"),
-    ({"streaming": True, "smer_transport": True}, False, "streaming mesh counter"),
+    ({"checkpoint_dir": "ck"}, False, "checkpoint_dir"),
+    ({"keep_table": True}, False, "keep_table"),
     ({"smer_transport": True}, True, "useHT=1"),
     ({"smer_transport": True, "checkpoint_dir": "ck"}, False, "checkpoint_dir"),
     ({"smer_transport": True, "keep_table": True}, False, "keep_table"),
@@ -132,5 +133,7 @@ def test_api_count_kmers_distributed(tmp_path, dataset):
                                        reads_per_batch=16, read_len=512)
     assert res.n_instances == sum(oracles.count_reads(reads, 28).values())
     assert res.balance["total"] > 0 and len(res.balance["loads"]) == 4
-    with pytest.raises(NotImplementedError, match="streaming mesh counter"):
-        tapi.count_kmers_distributed(fa, n_devices=2, device="cpu")
+    streamed = tapi.count_kmers_distributed(fa, n_devices=2, k=28, m=10, bins=64,
+                                            device="cpu")  # the streaming counter
+    np.testing.assert_array_equal(streamed.words, res.words)
+    np.testing.assert_array_equal(streamed.counts, res.counts)
