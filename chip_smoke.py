@@ -10,19 +10,25 @@ super-k-mer transport, and the streaming mesh counter (the default of
 
 1. card: needs ``torch.cuda.is_available()``; prints nvidia-smi's name and
    power limit;
-2. build: compiles the kernels with nvcc and prints the seconds taken;
+2. build: compiles the kernels with nvcc and prints the seconds taken and
+   ptxas's registers and spill bytes for each kernel; the redesigned
+   kernels (full-mode extract, cluster block sort) must spill nothing;
 3. kernel vs plain: the extract kernel against its plain torch version on
    the card (``torch.equal``) for every listed (k, m), at [512, 4096] and a
    ragged [3, k+5], and at phase 5's [4096, 4096] for k=28, where both are
    timed with CUDA events;
 3b. full-mode kernel vs plain: ``extract_full`` against ``extract.extract``
    on the card for the same (k, m) and shapes: ``valid`` equal, words, sigs
-   and bins equal where valid, bins in [0, B) everywhere; both timed at
+   and bins equal where valid, bins in [0, B) everywhere; the same at the
+   edge shapes k = m + 1, k = 256 with rows of k bases, and rows whose
+   starts end on or just past the kernel's 1024-start blocks; both timed at
    [4096, 4096] for k in {28, 31, 55, 97, 155};
 3c. block sort vs plain: ``cuda_sort.sort_blocks`` against
    ``sort_blocks_reference`` on the card for 1-4 keys, with and without a
-   value lane, at blocks 1024, 8192 and 32768: keys equal (``torch.equal``)
-   and each block's rows equal as a multiset;
+   value lane, at blocks 1024, 8192 and 32768, and at 32768 for all-equal
+   keys, mostly-sentinel blocks, 13 keys + 1 value and 15 keys + 1 value
+   (the tiled route): keys equal (``torch.equal``) and each block's rows
+   equal as a multiset;
 4. slice parity: the CLI entry (``cli.main``) on a seeded ~4 Mbp FASTA
    with Ns, at k=28 and k=32, with ``--device cuda`` and ``--device cpu``;
    the output directories must be identical;
@@ -62,7 +68,8 @@ super-k-mer transport, and the streaming mesh counter (the default of
 The script imports only the port (``fastkmer_tpu_torch``), torch and numpy.
 
 The line before the last is one JSON object with the kernels' launches,
-errors, times and bounds; the last line is ``{"ok": true, "device": {...}}``.
+errors, times, bounds and shares of the bound (``bound_share`` = bound_ms /
+ms); the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -70,6 +77,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -179,6 +187,22 @@ def same_bin_files(a: str, b: str) -> bool:
             if fa.read() != fb.read():
                 return False
     return True
+
+
+def ptxas_kernels(report: str) -> dict[str, tuple[int, int, int]]:
+    """ptxas -v report -> {mangled kernel: (registers, spill bytes, stack
+    frame bytes)}."""
+    out, fn, spill, stack = {}, None, 0, 0
+    for line in report.splitlines():
+        if m := re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)", line):
+            fn = m.group(1)
+        elif m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                            r"(\d+) bytes spill loads", line):
+            stack, spill = int(m.group(1)), int(m.group(2)) + int(m.group(3))
+        elif (m := re.search(r"Used (\d+) registers", line)) and fn:
+            out[fn] = (int(m.group(1)), spill, stack)
+            spill = stack = 0
+    return out
 
 
 def time_ms(fn, iters: int, setup=None) -> float:
@@ -303,6 +327,15 @@ def main() -> int:
         list(pool.map(lambda build: build(), (cuda_extract.library, cuda_sort.library)))
     log(f"[build] extract and block sort kernels built and loaded in "
         f"{time.perf_counter() - t0:.2f} s")
+    from fastkmer_tpu_torch.utils import cudabuild
+
+    for lib, srcs in (("fkextract", ("extract.cu",)), ("fkblocksort", ("block_sort.cu",))):
+        for fn, (regs, spill, stack) in sorted(
+                ptxas_kernels(cudabuild.ptxas_report(lib, srcs)).items()):
+            log(f"[build] ptxas {fn}: {regs} registers, {spill} spill bytes, "
+                f"{stack} bytes stack frame")
+            check(spill == 0 or not re.search("extract_full|cluster_sort", fn),
+                  f"{fn} spills {spill} bytes")
 
     # --- 3. kernel vs plain on the card ------------------------------------
     max_err = 0
@@ -351,6 +384,20 @@ def main() -> int:
             check(bool(((got.bins >= 0) & (got.bins < 2048)).all()),
                   f"full: a bin outside [0, 2048) at k={k} [{R}, {L}]")
         log(f"[full] k={k} m={m}: equal to plain where valid at [512, 4096] and [3, {k + 5}]")
+    for k, m, R, L in ((11, 10, 64, 1024), (256, 15, 8, 256), (28, 10, 5, 1024 + 27),
+                       (28, 10, 5, 2048 + 28), (97, 13, 3, 3 * 1024 + 96)):
+        codes = random_codes(rng3b, R, L)
+        codes[1, 1023:1025] = 4  # Ns on the kernel's block boundary
+        codes = torch.from_numpy(codes).to(dev)
+        got = cuda_extract.extract_full(codes, k, m, 2048)
+        ref = extract.extract(codes, k, m, 2048)
+        v = ref.valid
+        check(got.valid.dtype == torch.bool and torch.equal(got.valid, ref.valid),
+              f"full: valid differs at edge k={k} [{R}, {L}]")
+        for g, r in ((got.words, ref.words), (got.sigs, ref.sigs), (got.bins, ref.bins)):
+            check(torch.equal(g[v], r[v]), f"full: kernel != plain at edge k={k} [{R}, {L}]")
+        check(bool(((got.bins >= 0) & (got.bins < 2048)).all()), f"full: bin range, edge k={k}")
+    log("[full] edge shapes (k = m + 1, k = 256 with L = k, P = 1024, 2049, 3072): equal")
     big = torch.from_numpy(random_codes(rng3b, 4096, 4096)).to(dev)
     full_times = {}
     for k, m in ((28, 10), (31, 8), (55, 9), (97, 13), (155, 14)):
@@ -375,6 +422,21 @@ def main() -> int:
                 lanes = sort_lanes(rng3c, torch, dev, 4 * block, keys, vals)
                 sort_err = max(sort_err, sort_matches_plain(cuda_sort, lanes, keys, block))
         log(f"[sort] block {block}: kernel == plain for 1-4 keys, with and without a value")
+    for case, keys in (("all-equal keys", 2), ("mostly sentinel", 2), ("13 keys + 1 value", 13),
+                       ("15 keys + 1 value, tiled", 15)):
+        lanes = sort_lanes(rng3c, torch, dev, 4 * SORT_BLOCK, keys, 1)
+        if case == "all-equal keys":
+            for c in lanes[:keys]:
+                c.fill_(5)
+        elif case == "mostly sentinel":  # the compaction's padding: count 0
+            dead = torch.rand(4 * SORT_BLOCK, device=dev) < 0.9
+            for c in lanes[:keys]:
+                c[dead] = -1
+            lanes[-1][dead] = 0
+        route = cuda_sort.stage_plan(keys + 1, SORT_BLOCK).route
+        check(route == ("tiled" if "tiled" in case else "cluster"), f"sort: {case} takes {route}")
+        sort_err = max(sort_err, sort_matches_plain(cuda_sort, lanes, keys, SORT_BLOCK))
+        log(f"[sort] block {SORT_BLOCK}, {case} ({route} route): kernel == plain")
 
     # --- 4. slice parity: cuda vs cpu --------------------------------------
     with tempfile.TemporaryDirectory() as tmp:
@@ -628,7 +690,7 @@ def main() -> int:
          (4096 * 4096 + 2 * 4 * rp) / HBM_BYTES_PER_S * 1e3, None, "extract.cu"),
         ("extract_full", 'fastkmer_tpu/ops/pallas_extract.py:215 (extract_pallas, _mk_kernel '
          'mode="full")', stream_full, full_err, full_ms, full_plain_ms,
-         (4096 * 4096 + 5 * 4 * rp) / HBM_BYTES_PER_S * 1e3, None, "extract.cu"),
+         (4096 * 4096 + (4 * 4 + 1) * rp) / HBM_BYTES_PER_S * 1e3, None, "extract.cu"),
         ("block_sort", "fastkmer_tpu/ops/pallas_sort.py:150 (sort_blocks, "
          "_mk_block_sort_kernel)", stream_sort, sort_err, sort_ms, sort_plain_ms,
          sort_bound_ms, sort_lib_ms, "block_sort.cu"),
@@ -636,7 +698,7 @@ def main() -> int:
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": f"fastkmer_tpu_torch/csrc/{src}",
         "replaces": replaces, "launches": n, "max_abs_err": err, "ms": ms, "plain_ms": pms,
-        "bound_ms": bound, "bound_by": "bytes", "library_ms": lib,
+        "bound_ms": bound, "bound_by": "bytes", "library_ms": lib, "bound_share": bound / ms,
     } for name, replaces, n, err, ms, pms, bound, lib, src in kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

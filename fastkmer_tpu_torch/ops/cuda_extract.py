@@ -8,6 +8,9 @@
 * ``extract_full`` (full mode) replaces ``extract_pallas`` (the Pallas
   ``_mk_kernel(mode="full")``), the mesh's stage-1 extractor.  Its plain
   version is ``extract.extract``; ``FULL_LAUNCHES`` counts launches.
+  ``extract_full_twin`` is the kernel's own algorithm in torch (staged
+  16-mers, prefix counts of invalid codes, the segmented window minimum,
+  tiles with their halo), for the CPU tests; no path calls it.
 
 Both kernels live in ``csrc/extract.cu``; its header says what bounds them
 and how they are tiled.  A wrapper launches its kernel for a CUDA tensor
@@ -23,6 +26,7 @@ import functools
 
 import torch
 
+from ..core import tbits
 from ..core.bits import num_words
 from ..utils import cudabuild
 from . import extract
@@ -33,9 +37,12 @@ FULL_LAUNCHES = 0
 # count mode: shared memory per block is kTile + k - 1 bytes; stay under the
 # 48 KB a block gets without an opt-in attribute
 _MAX_K = 48 * 1024 - 256 + 1
-# full mode: (kTile + k - 1) + 4·(kTile + k - m) bytes, 2.5 KB at k = 256;
-# k is held to the Pallas kernel's own bound (extract_pallas asserts k <= 256)
+# full mode: about 24·(FULL_TILE + k) bytes of shared memory, 32 KB at
+# k = 256; k is held to the Pallas kernel's own bound (extract_pallas
+# asserts k <= 256)
 _MAX_K_FULL = 256
+# window starts per block of the full-mode kernel (csrc/extract.cu kFullStarts)
+FULL_TILE = 1024
 
 
 @functools.cache
@@ -49,7 +56,8 @@ def library() -> ctypes.CDLL:
     lib.fk_extract_count.restype = ctypes.c_int
     lib.fk_extract_full.argtypes = [
         ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_void_p,
     ]
     lib.fk_extract_full.restype = ctypes.c_int
     return lib
@@ -116,6 +124,14 @@ def extract_sentinel(
     return tuple(out.unbind(0))
 
 
+def _check_full(codes: torch.Tensor, k: int, m: int, B: int) -> None:
+    _check_codes(codes, k, _MAX_K_FULL)
+    if not 4 <= m <= 15 or m >= k:
+        raise ValueError(f"m={m} outside [4, min(15, k - 1)]")
+    if not 1 <= B < 1 << 31:
+        raise ValueError(f"B={B} outside [1, 2^31)")
+
+
 def extract_full(codes: torch.Tensor, k: int, m: int, B: int) -> extract.Extracted:
     """[R, L] uint8 codes -> ``extract.Extracted`` over the R·P window
     starts (P = L - k + 1, index r·P + i): words [R·P, W] int32, bins int32
@@ -123,24 +139,82 @@ def extract_full(codes: torch.Tensor, k: int, m: int, B: int) -> extract.Extract
     with the plain version ``extract.extract`` everywhere; words, sigs and
     bins agree where valid.  4 <= m <= 15, m < k <= 256."""
     global FULL_LAUNCHES
-    _check_codes(codes, k, _MAX_K_FULL)
-    if not 4 <= m <= 15 or m >= k:
-        raise ValueError(f"m={m} outside [4, min(15, k - 1)]")
-    if not 1 <= B < 1 << 31:
-        raise ValueError(f"B={B} outside [1, 2^31)")
+    _check_full(codes, k, m, B)
     if codes.device.type == "cpu":
         return extract.extract(codes, k, m, B)
     R, L = codes.shape
     P = L - k + 1
     W = num_words(k)
-    out = torch.empty((W + 3, R * P), dtype=torch.int32, device=codes.device)
+    out = torch.empty((W + 2, R * P), dtype=torch.int32, device=codes.device)
+    valid = torch.empty(R * P, dtype=torch.uint8, device=codes.device)
     stream = torch.cuda.current_stream(codes.device).cuda_stream
     err = library().fk_extract_full(
-        codes.data_ptr(), R, L, k, m, B, out.data_ptr(), codes.device.index or 0, stream,
+        codes.data_ptr(), R, L, k, m, B, out.data_ptr(), valid.data_ptr(),
+        codes.device.index or 0, stream,
     )
     if err:
         raise RuntimeError(f"full-mode extract kernel launch failed: CUDA error {err}")
     FULL_LAUNCHES += 1
     return extract.Extracted(
-        words=out[:W].t(), bins=out[W], sigs=out[W + 1], valid=out[W + 2].bool(),
+        words=out[:W].t(), bins=out[W], sigs=out[W + 1], valid=valid.view(torch.bool),
+    )
+
+
+def extract_full_twin(
+    codes: torch.Tensor, k: int, m: int, B: int, tile: int = FULL_TILE
+) -> extract.Extracted:
+    """The full-mode kernel's algorithm in torch, one row of ``tile`` window
+    starts per block: the block's staged codes (code 4 past the row), the
+    packed forward and reverse-complement 16-mers of every staged position,
+    the exclusive prefix count of invalid codes, the m-mer norms from the
+    16-mers and the van Herk window minimum over segments of k - m + 1
+    norms.  Same outputs as ``extract_full``; words at invalid windows are
+    the kernel's too."""
+    _check_full(codes, k, m, B)
+    R, L = codes.shape
+    P = L - k + 1
+    T = -(-P // tile)  # blocks per row
+    W = num_words(k)
+    nF, nN, nK, nC = tile + k - 1, tile + k - m, tile + k + 1, tile + k + 14
+    pos = (torch.arange(T)[:, None] * tile + torch.arange(nC)[None, :]).to(codes.device)
+    ext = torch.cat([codes, codes.new_full((R, T * tile + nC - L), 4)], dim=1)
+    staged = ext[:, pos]  # [R, T, nC]
+    c2 = (staged & 3).to(torch.int64)
+    fw = sum(c2[..., p : p + nF] << (2 * (15 - p)) for p in range(16))
+    rw = sum((3 - c2[..., p : p + nF]) << (2 * p) for p in range(16))
+    bad = (staged[..., : nK - 1] >= 4).to(torch.int64)
+    cnt = torch.cat([torch.zeros_like(bad[..., :1]), bad.cumsum(-1)], dim=-1)
+    nrm = tbits.norm_mmers(fw[..., :nN] >> (32 - 2 * m), m)
+    w = k - m + 1
+    nseg = -(-nN // w)
+    seg = torch.cat([nrm, nrm.new_full((R, T, nseg * w - nN), 1 << 32)], dim=-1)
+    seg = seg.view(R, T, nseg, w)
+    pre = seg.cummin(-1).values.view(R, T, -1)
+    suf = seg.flip(-1).cummin(-1).values.flip(-1).view(R, T, -1)
+    li = torch.arange(tile, device=codes.device)
+    sigs = torch.minimum(suf[..., li], pre[..., li + w - 1])
+    valid = cnt[..., li + k] == cnt[..., li]
+    rem = k - 16 * (W - 1)
+    fwd = [fw[..., li + 16 * wd] for wd in range(W)]
+    fwd[-1] = fwd[-1] & (tbits.M32 ^ ((1 << (32 - 2 * rem)) - 1))
+    rc = [rw[..., li + k - 16 * (wd + 1)] for wd in range(W - 1)]
+    rc.append(rw[..., li + k - 16 * W] if rem == 16
+              else (rw[..., li] & ((1 << (2 * rem)) - 1)) << (32 - 2 * rem))
+    use_rc = torch.zeros_like(valid)
+    decided = torch.zeros_like(valid)
+    for f, r in zip(fwd, rc):
+        use_rc |= ~decided & (r < f)
+        decided |= r != f
+
+    def flat(x: torch.Tensor) -> torch.Tensor:  # [R, T, tile] -> [R·P]
+        return x.reshape(R, T * tile)[:, :P].reshape(R * P)
+
+    words = torch.stack(
+        [tbits.as_i32(flat(torch.where(use_rc, r, f))) for f, r in zip(fwd, rc)], dim=1
+    )
+    return extract.Extracted(
+        words=words,
+        bins=flat(tbits.hash_to_bucket(sigs, B)),
+        sigs=flat(sigs).to(torch.int32),
+        valid=flat(valid),
     )

@@ -10,15 +10,19 @@ version is ``sort_blocks_reference``; ``LAUNCHES`` counts the kernel
 launches (one per call).
 
 The kernel lives in ``csrc/block_sort.cu``; its header says what bounds it
-and how a block larger than a CTA's shared memory is tiled.  For a CUDA
-tensor the wrapper launches the kernel or raises; only a CPU tensor takes
-the plain version.
+and how it keeps a block on chip.  ``stage_plan`` says, from the shape
+alone, which route the kernel takes (one block per thread-block cluster,
+or the tiled route for shapes no cluster holds) and where each stage of
+the network runs; the wrapper launches what it says.  For a CUDA tensor
+the wrapper launches the kernel or raises; only a CPU tensor takes the
+plain version.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -30,6 +34,9 @@ LAUNCHES = 0
 # dynamic shared memory a Hopper CTA may opt into (227 KB)
 SMEM_BYTES = 232448
 MIN_BLOCK = 1024
+# the cluster route: at most 8 CTAs (the portable cluster size) and 16 lanes
+MAX_CLUSTER = 8
+MAX_CLUSTER_LANES = 16
 
 
 @functools.cache
@@ -38,7 +45,7 @@ def library() -> ctypes.CDLL:
     lib = cudabuild.load("fkblocksort", ("block_sort.cu",))
     lib.fk_sort_blocks.argtypes = [
         ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ]
     lib.fk_sort_blocks.restype = ctypes.c_int
     return lib
@@ -56,6 +63,99 @@ def tile_rows(lanes: int, block: int) -> int:
             "shared memory"
         )
     return tile
+
+
+def rows_per_thread(lanes: int) -> int:
+    """Rows a thread holds in registers on the cluster route (the kernel's
+    ``rows_per_thread``: 16 up to 3 lanes, 8 up to 6, then 4)."""
+    return 16 if lanes <= 3 else 8 if lanes <= 6 else 4
+
+
+def pass_strides(lanes: int) -> int:
+    """Strides one shared-memory pass of the cluster route runs (the
+    kernel's ``pass_strides``): 3 up to 5 lanes, 2 up to 10, else 1."""
+    return 3 if lanes <= 5 else 2 if lanes <= 10 else 1
+
+
+class StagePlan(NamedTuple):
+    """How the kernel sorts blocks of this shape.
+
+    route: "cluster" (one block per thread-block cluster, one device-memory
+        pass) or "tiled" (``tile``-row tiles, strides >= tile in device
+        memory);
+    cluster: CTAs per block on the cluster route, else 0;
+    rows_per_cta: rows each CTA holds in shared memory (block / cluster, or
+        tile);
+    rows_per_thread: R, rows a lane holds in registers (cluster route): a
+        warp's chunk of C = 32 R rows, lane ln holding rows ln·R + j
+        (mapping Y: strides < R in the thread, R .. C/2 between lanes) or
+        ln + 32 j (mapping X: strides 32 .. C/2 in the thread, used for
+        klev > C);
+    stages: (klev, s, where) in network order; where is "registers",
+        "shuffle", "shared" or "cluster" (a shared-memory pass that reaches
+        other CTAs) on the cluster route, "shared" or "device" on the tiled
+        one;
+    passes: the strides of each shared-memory pass of the cluster route,
+        (klev, (s, s/2, ...)) in order: up to ``pass_strides`` strides from
+        klev/2 down to C = 32 R, each pass loading its rows once.
+    """
+
+    route: str
+    cluster: int
+    rows_per_cta: int
+    rows_per_thread: int
+    stages: tuple
+    passes: tuple = ()
+
+
+def stage_plan(lanes: int, block: int) -> StagePlan:
+    """The kernel's plan for ``lanes`` uint32 lanes and blocks of ``block``
+    rows, from the shape alone."""
+    if block < MIN_BLOCK or block & (block - 1):
+        raise ValueError(f"block={block} is not a power of two >= {MIN_BLOCK}")
+    klevs = [1 << e for e in range(1, block.bit_length())]
+    cluster = _cluster_size(lanes, block, SMEM_BYTES // 2)  # two CTAs an SM
+    if cluster > MAX_CLUSTER:
+        cluster = _cluster_size(lanes, block, SMEM_BYTES)  # one CTA an SM
+    if lanes <= MAX_CLUSTER_LANES and cluster <= MAX_CLUSTER:
+        R = rows_per_thread(lanes)
+        rc = block // cluster
+
+        C = 32 * R  # rows of a warp's chunk
+        ns = pass_strides(lanes)
+        passes, top = [], {}
+        for kl in klevs:
+            big = [s for s in _strides(kl) if s >= C]
+            for g in range(0, len(big), ns):
+                passes.append((kl, tuple(big[g : g + ns])))
+                top.update({(kl, s): big[g] for s in big[g : g + ns]})
+
+        def where(kl: int, s: int) -> str:
+            if s < R or (kl > C and 32 <= s < C):  # inside a thread (Y; X)
+                return "registers"
+            if s < C:  # between lanes (mapping Y)
+                return "shuffle"
+            return "shared" if top[kl, s] < rc else "cluster"
+
+        stages = tuple((kl, s, where(kl, s)) for kl in klevs for s in _strides(kl))
+        return StagePlan("cluster", cluster, rc, R, stages, tuple(passes))
+    tile = tile_rows(lanes, block)
+    stages = tuple((kl, s, "shared" if s < tile else "device")
+                   for kl in klevs for s in _strides(kl))
+    return StagePlan("tiled", 0, tile, 0, stages)
+
+
+def _cluster_size(lanes: int, block: int, smem: int) -> int:
+    """The fewest CTAs (a power of two) whose ``smem`` bytes each hold a
+    block's lanes."""
+    cluster = 1
+    while lanes * block * 4 > cluster * smem:
+        cluster *= 2
+    return cluster
+
+
+def _strides(klev: int) -> list:
+    return [1 << e for e in reversed(range(klev.bit_length() - 1))]
 
 
 def _check(cols: tuple, num_keys: int, block: int) -> None:
@@ -111,10 +211,13 @@ def sort_blocks_(buf: torch.Tensor, num_keys: int, block: int) -> tuple:
         return cols
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    tile = tile_rows(len(cols), block)
+    plan = stage_plan(len(cols), block)
+    if plan.route == "cluster" and buf.data_ptr() % 16:
+        raise ValueError("the cluster route needs a 16-byte aligned buffer")
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = library().fk_sort_blocks(
-        buf.data_ptr(), buf.shape[1], len(cols), num_keys, block, tile, dev.index or 0, stream,
+        buf.data_ptr(), buf.shape[1], len(cols), num_keys, block,
+        plan.rows_per_cta, plan.cluster, dev.index or 0, stream,
     )
     if err:
         raise RuntimeError(f"block sort kernel launch failed: CUDA error {err}")

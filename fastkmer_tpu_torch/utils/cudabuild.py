@@ -6,6 +6,10 @@ other sources is never loaded.  Each source file has a plain C entry point
 (no PyTorch headers), which keeps a build at seconds.  The library lands in
 ``build/fastkmer_tpu_torch/`` beside the package (git-ignored).
 
+nvcc runs with ``-Xptxas -v``: its report of each kernel's registers,
+shared memory and spill bytes is kept beside the library
+(``lib<name>-<hash>.ptxas.txt``) and returned by ``ptxas_report``.
+
 Unlike ``nativebuild.ensure_built``, which returns False on failure, a
 failed build raises with nvcc's stderr: a CUDA tensor must never fall back
 to a plain path.
@@ -26,7 +30,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 
@@ -54,11 +58,16 @@ def _digest(paths: list[str]) -> str:
     return h.hexdigest()
 
 
+def _library_path(name: str, sources: tuple[str, ...]) -> str:
+    paths = [os.path.join(CSRC, s) for s in sources]
+    return os.path.join(BUILD_DIR, f"lib{name}-{_digest(paths)[:16]}.so")
+
+
 def build(name: str, sources: tuple[str, ...]) -> str:
     """Compile csrc/<sources> into lib<name>-<hash>.so unless a library
     built from exactly these sources exists.  Returns its path."""
     paths = [os.path.join(CSRC, s) for s in sources]
-    so = os.path.join(BUILD_DIR, f"lib{name}-{_digest(paths)[:16]}.so")
+    so = _library_path(name, sources)
     if os.path.exists(so):
         return so
     os.makedirs(BUILD_DIR, exist_ok=True)
@@ -71,8 +80,17 @@ def build(name: str, sources: tuple[str, ...]) -> str:
         raise RuntimeError(
             f"nvcc failed to build {name} (exit {proc.returncode}):\n{proc.stderr}"
         )
+    with open(so[: -len(".so")] + ".ptxas.txt", "w") as f:
+        f.write(proc.stderr)
     os.replace(tmp, so)
     return so
+
+
+def ptxas_report(name: str, sources: tuple[str, ...]) -> str:
+    """ptxas's -v report of the library built from these sources (build it
+    first)."""
+    with open(_library_path(name, sources)[: -len(".so")] + ".ptxas.txt") as f:
+        return f.read()
 
 
 @functools.cache

@@ -4,7 +4,10 @@ sort kernel are held against their plain torch versions (bit-equality,
 where valid for full mode's words and sigs; keys bit-equal and row
 multisets equal per block for the sort), and the count job and 2-shard
 mesh jobs (per batch and streaming, with and without the block-sort
-compaction) on cuda against the same jobs on the CPU.  No jax is needed, so a machine with a
+compaction) on cuda against the same jobs on the CPU; edge shapes of
+both redesigned kernels (k = m + 1, k = 256, rows of k bases, a row ending
+on a block of starts; all-equal and mostly-sentinel sort blocks, 13 keys, and
+the tiled route).  No jax is needed, so a machine with a
 card and no jax runs them without the jax-importing conftest:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -119,6 +122,28 @@ def test_full_kernel_matches_plain(cuda, k, m):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("k,m,R,L", [
+    (11, 10, 64, 1024),          # k = m + 1: windows of one norm
+    (256, 15, 8, 256),           # the largest k, rows of exactly k
+    (28, 10, 5, 1024 + 27),      # P = 1024: one full block of starts a row
+    (28, 10, 5, 2048 + 28),      # P = 2049: one start past two blocks
+    (97, 13, 3, 3 * 1024 + 96),  # three full blocks, a long halo
+])
+def test_full_kernel_edge_shapes(cuda, k, m, R, L):
+    codes = _codes(k * 7 + R, R, L, k)
+    codes[3:4, 1023:1025] = 4  # Ns on the kernel's block boundary
+    codes = torch.from_numpy(codes).to(cuda)
+    got = cuda_extract.extract_full(codes, k, m, 2000)
+    torch.cuda.synchronize()
+    ref = extract.extract(codes, k, m, 2000)
+    assert got.valid.dtype == torch.bool and torch.equal(got.valid, ref.valid)
+    v = ref.valid
+    for a, b in ((got.words, ref.words), (got.sigs, ref.sigs), (got.bins, ref.bins)):
+        assert torch.equal(a[v], b[v])
+    assert bool(((got.bins >= 0) & (got.bins < 2000)).all())
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("smer", [True, False])
 def test_mesh_job_cuda_matches_cpu(cuda, tmp_path, smer):
     fa = str(tmp_path / "reads.fa")
@@ -175,6 +200,36 @@ def test_block_sort_kernel_matches_plain(cuda, keys, vals, block):
         c = np.unique(rows_r[b].numpy(), axis=0, return_counts=True)
         np.testing.assert_array_equal(a[0], c[0])
         np.testing.assert_array_equal(a[1], c[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["equal", "sentinel", "13+1", "tiled"])
+def test_block_sort_kernel_edge_cases(cuda, case):
+    """All-equal keys; blocks that are mostly sentinel rows of count 0 (the
+    compaction's padding); 13 keys and a value (run-time lane counts); 15
+    keys and a value (no cluster holds a block: the tiled route)."""
+    block = 1 << 15
+    keys, vals = {"equal": (2, 1), "sentinel": (2, 1), "13+1": (13, 1), "tiled": (15, 1)}[case]
+    lanes = _sort_lanes(keys + 17, 4 * block, keys, vals)
+    if case == "equal":
+        for c in lanes[:keys]:
+            c.fill_(5)
+    elif case == "sentinel":
+        dead = torch.rand(4 * block, generator=torch.Generator().manual_seed(3)) < 0.9
+        for c in lanes[:keys]:
+            c[dead] = -1
+        lanes[-1][dead] = 0
+    plan = cuda_sort.stage_plan(keys + vals, block)
+    assert plan.route == ("tiled" if case == "tiled" else "cluster")
+    got = cuda_sort.sort_blocks(tuple(c.to(cuda) for c in lanes), keys, block)
+    torch.cuda.synchronize()
+    ref = cuda_sort.sort_blocks_reference(tuple(lanes), keys, block)
+    for g, r in zip(got[:keys], ref[:keys]):
+        assert torch.equal(g.cpu(), r)
+    whole = keys + vals
+    for g, r in zip(cuda_sort.sort_blocks_reference(tuple(c.cpu() for c in got), whole, block),
+                    cuda_sort.sort_blocks_reference(ref, whole, block)):
+        assert torch.equal(g, r)  # each block's rows, as a multiset
 
 
 @pytest.mark.cuda
