@@ -6,7 +6,9 @@ Builds the CUDA kernels from ``fastkmer_tpu_torch/csrc`` (one nvcc per
 source, started together) and drives the port's three paths: the
 single-chip sort-engine count job, the per-batch mesh count job with
 super-k-mer transport, and the streaming mesh counter (the default of
-``--mesh N``).  Each phase raises on failure, so the process exits non-zero:
+``--mesh N``); then the probe scripts that run kernels D and E
+(``fastkmer_tpu_torch.benchmarks``).  Each phase raises on failure, so the
+process exits non-zero:
 
 1. card: needs ``torch.cuda.is_available()``; prints nvidia-smi's name and
    power limit;
@@ -63,13 +65,30 @@ super-k-mer transport, and the streaming mesh counter (the default of
    one of its full merge windows, the block sort is held against its plain
    version as in phase 3c, and the kernel (in place, on a fresh unsorted
    copy each call), its plain version and ``torch.sort`` of the packed key
-   (the library yardstick) are timed.
+   (the library yardstick) are timed;
+8. kernel E (``cuda_probe.copy_pass`` / ``transpose_pass``) against its
+   plain version (``torch.equal``) at 2^14 and 2^24 values a lane and on
+   lanes with 0xFFFFFFFF entries; both passes, the plain version and the
+   library's int32 ``a + 1`` on each lane timed at 2^24;
+9. kernel D (``cuda_bitonic_merge.bitonic_merge_``) against its plain
+   version for 1-3 keys with and without a value lane at 2^11 (one tile),
+   2^15 and 2^17 rows, and at 2^17 for all-equal keys and mostly-sentinel
+   halves: keys equal to the plain version's and to the sorted keys, rows
+   the same multiset; then at 2^27 rows x 3 lanes (2 keys + 1 value, the
+   split-merge probe's shape) the same checks, and the kernel (in place, on
+   a fresh copy each call), its plain version and ``torch.sort`` of the
+   packed key timed;
+10. the probes on the card, each with the kernels' counts set to 0 just
+   before it: ``split_merge_probe.run(27)`` (its exactness fields must
+   hold), ``resume_merge_probe.run()`` and ``cuda_probe.run(24)``; their
+   JSON lines are printed, and each must have launched its kernel.
 
 The script imports only the port (``fastkmer_tpu_torch``), torch and numpy.
 
-The line before the last is one JSON object with the kernels' launches,
-errors, times, bounds and shares of the bound (``bound_share`` = bound_ms /
-ms); the last line is ``{"ok": true, "device": {...}}``.
+The line before the last is one JSON object with the five kernels'
+launches (D's: split_merge's and resume_merge's summed), errors, times,
+bounds and shares of the bound (``bound_share`` = bound_ms / ms); the last
+line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -95,7 +114,6 @@ COVERAGE = 16
 READ_LEN = 150
 BASE_CODE = np.full(256, 4, np.uint8)  # ASCII -> 2-bit code, 4 = not ACGT
 BASE_CODE[np.frombuffer(b"ACGT", np.uint8)] = np.arange(4, dtype=np.uint8)
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA's data sheet)
 SORT_BLOCK = 1 << 15  # the merges' compaction block (pipeline._acc_merge)
 
 
@@ -205,27 +223,6 @@ def ptxas_kernels(report: str) -> dict[str, tuple[int, int, int]]:
     return out
 
 
-def time_ms(fn, iters: int, setup=None) -> float:
-    """Median milliseconds of ``fn`` on the card (CUDA events, warmed up);
-    ``setup`` runs before each call, outside the timed span."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(iters):
-        if setup is not None:
-            setup()
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return float(np.median(times))
-
-
 @contextlib.contextmanager
 def block_sort_switch(on: bool):
     """FASTKMER_PALLAS_COMPACT=1 inside the block (the block-sort
@@ -274,6 +271,30 @@ def sort_matches_plain(cuda_sort, lanes: tuple, keys: int, block: int) -> int:
     return err
 
 
+def merge_matches_plain(cbm, count_sort, lanes: tuple, keys: int) -> int:
+    """Kernel D on the rows of ``lanes`` arranged as [A ascending | B
+    descending] against its plain version: key lanes equal to the plain
+    version's and to the sorted keys (``torch.sort`` of the packed keys),
+    rows the same multiset.  Returns the largest key difference (0)."""
+    import torch
+
+    src = cbm.bitonic_input(lanes, keys)
+    got = cbm.bitonic_merge_(src.clone(), keys, 1024)
+    torch.cuda.synchronize()
+    ref = cbm.bitonic_merge_reference(tuple(src), keys, 1024)
+    want = count_sort.sort_columns(list(lanes[:keys]))[0]
+    n = lanes[0].numel()
+    err = 0
+    for g, r, w in zip(got[:keys], ref[:keys], want):
+        err = max(err, int((g.to(torch.int64) - r.to(torch.int64)).abs().max()))
+        check(torch.equal(g, r), f"merge: keys differ from plain, {keys} keys, {n} rows")
+        check(torch.equal(g, w), f"merge: keys not sorted, {keys} keys, {n} rows")
+    for g, r in zip(count_sort.sort_columns(list(got))[0], count_sort.sort_columns(list(ref))[0]):
+        check(torch.equal(g, r), f"merge: the rows changed, {keys} keys, {len(lanes)} lanes, "
+                                 f"{n} rows")
+    return err
+
+
 def check_mesh_run(summary: dict, n_bases: int, expect: int, out5: str, tag: str) -> None:
     """Phase 5's checks on a mesh run of phase 5's workload, and bin files
     equal to phase 5's."""
@@ -304,8 +325,11 @@ def main() -> int:
     sys.path.insert(0, REPO)
     try:
         from fastkmer_tpu_torch import api, cli
+        from fastkmer_tpu_torch.benchmarks import cuda_bitonic_merge, cuda_probe
+        from fastkmer_tpu_torch.benchmarks import resume_merge_probe, split_merge_probe
+        from fastkmer_tpu_torch.benchmarks._common import HBM_BYTES_PER_S, rand_i32, time_ms
         from fastkmer_tpu_torch.core.tbits import pair_key
-        from fastkmer_tpu_torch.ops import cuda_extract, cuda_sort, extract
+        from fastkmer_tpu_torch.ops import count_sort, cuda_extract, cuda_sort, extract
     except ImportError as e:
         print(f"chip_smoke: the repository is not beside this script ({e})", file=sys.stderr)
         return 1
@@ -323,13 +347,17 @@ def main() -> int:
 
     # --- 2. build --------------------------------------------------------
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:  # one nvcc per source, started together
-        list(pool.map(lambda build: build(), (cuda_extract.library, cuda_sort.library)))
-    log(f"[build] extract and block sort kernels built and loaded in "
-        f"{time.perf_counter() - t0:.2f} s")
+    libraries = (cuda_extract.library, cuda_sort.library, cuda_bitonic_merge.library,
+                 cuda_probe.library)
+    with ThreadPoolExecutor(len(libraries)) as pool:  # one nvcc per source, started together
+        list(pool.map(lambda build: build(), libraries))
+    log(f"[build] extract, block sort, bitonic merge and pass probe kernels built and loaded "
+        f"in {time.perf_counter() - t0:.2f} s")
     from fastkmer_tpu_torch.utils import cudabuild
 
-    for lib, srcs in (("fkextract", ("extract.cu",)), ("fkblocksort", ("block_sort.cu",))):
+    for lib, srcs in (("fkextract", ("extract.cu",)), ("fkblocksort", ("block_sort.cu",)),
+                      ("fkbitonicmerge", ("bitonic_merge.cu",)),
+                      ("fkpassprobe", ("pass_probe.cu",))):
         for fn, (regs, spill, stack) in sorted(
                 ptxas_kernels(cudabuild.ptxas_report(lib, srcs)).items()):
             log(f"[build] ptxas {fn}: {regs} registers, {spill} spill bytes, "
@@ -682,6 +710,109 @@ def main() -> int:
         f"plain {sort_plain_ms:.4f} ms, torch.sort of the packed key {sort_lib_ms:.4f} ms, "
         f"bound {sort_bound_ms:.4f} ms")
 
+    # --- 8. kernel E, the pass probes, vs plain on the card ---------------------
+    t8 = time.perf_counter()
+    gen8 = torch.Generator(dev).manual_seed(8)
+    pass_err = 0
+    for case, n in (("2^14", 1 << 14), ("2^24", 1 << 24), ("0xFFFFFFFF entries", 1 << 15)):
+        a, b = (rand_i32(gen8, n, dev).view(-1, 128) for _ in range(2))
+        if case == "0xFFFFFFFF entries":
+            a[:, ::7] = -1
+            b[0] = -1
+        for fn in (cuda_probe.copy_pass, cuda_probe.transpose_pass):
+            got = fn(a, b)
+            torch.cuda.synchronize()
+            for g, x in zip(got, (a, b)):
+                r = cuda_probe.pass_reference(x)
+                pass_err = max(pass_err, int((g.to(torch.int64) - r.to(torch.int64)).abs().max()))
+                check(torch.equal(g, r), f"{fn.__name__} != plain at {case}")
+        if case == "0xFFFFFFFF entries":
+            check(int(got[0][0, 0]) == 0 and int(got[1][0, 5]) == 0, "0xFFFFFFFF did not wrap")
+        log(f"[pass] copy and transpose == plain at {case} ([{n // 128}, 128] x 2)")
+        if case == "2^24":
+            copy_ms = time_ms(lambda: cuda_probe.copy_pass(a, b), 50)
+            tr_ms = time_ms(lambda: cuda_probe.transpose_pass(a, b), 50)
+            pass_plain_ms = time_ms(lambda: (cuda_probe.pass_reference(a),
+                                             cuda_probe.pass_reference(b)), 10)
+            pass_lib_ms = time_ms(lambda: (a + 1, b + 1), 50)
+    del a, b, got
+    pass_bound_ms = 2 * 2 * (1 << 24) * 4 / HBM_BYTES_PER_S * 1e3
+    log(f"[pass] 2^24 x 2 lanes: copy {copy_ms:.4f} ms, transpose {tr_ms:.4f} ms, plain "
+        f"{pass_plain_ms:.4f} ms, int32 a + 1 {pass_lib_ms:.4f} ms, bound {pass_bound_ms:.4f} ms "
+        f"(copy {2 * 2 * (1 << 24) * 4 / copy_ms / 1e6:.1f} GB/s); phase 8 "
+        f"{time.perf_counter() - t8:.2f} s")
+
+    # --- 9. kernel D, the bitonic merge, vs plain on the card ----------------------
+    t9 = time.perf_counter()
+    rng9 = np.random.default_rng(9)
+    merge_err = 0
+    for n in (1 << 11, 1 << 15, 1 << 17):
+        for keys in (1, 2, 3):
+            for vals in (0, 1):
+                lanes = sort_lanes(rng9, torch, dev, n, keys, vals)
+                merge_err = max(merge_err, merge_matches_plain(cuda_bitonic_merge, count_sort,
+                                                               lanes, keys))
+        log(f"[merge] {n} rows (tile {cuda_bitonic_merge.tile_rows(3, n)} at 3 lanes): "
+            "kernel == plain for 1-3 keys, with and without a value")
+    for case in ("all-equal keys", "mostly sentinel"):
+        lanes = sort_lanes(rng9, torch, dev, 1 << 17, 2, 1)
+        if case == "all-equal keys":
+            for c in lanes[:2]:
+                c.fill_(5)
+        else:  # the resume probe's padding: sentinel keys of count 0
+            dead = torch.rand(1 << 17, device=dev) < 0.9
+            for c in lanes[:2]:
+                c[dead] = -1
+            lanes[-1][dead] = 0
+        merge_err = max(merge_err, merge_matches_plain(cuda_bitonic_merge, count_sort, lanes, 2))
+        log(f"[merge] {1 << 17} rows, {case}: kernel == plain")
+    n_merge = 1 << 27  # split_merge_probe's shape: 2 keys + 1 value
+    gen9 = torch.Generator(dev).manual_seed(9)
+    lanes = (rand_i32(gen9, n_merge, dev), rand_i32(gen9, n_merge, dev),
+             rand_i32(gen9, n_merge, dev, 1, 3))
+    merge_err = max(merge_err, merge_matches_plain(cuda_bitonic_merge, count_sort, lanes, 2))
+    log(f"[merge] [{n_merge}] rows x 3 lanes: kernel == plain, keys == torch.sort's")
+    src = cuda_bitonic_merge.bitonic_input(lanes, 2)
+    del lanes
+    buf = torch.empty_like(src)
+    merge_ms = time_ms(lambda: cuda_bitonic_merge.bitonic_merge_(buf, 2, 1 << 16), 10,
+                       setup=lambda: buf.copy_(src))
+    del buf
+    merge_plain_ms = time_ms(
+        lambda: cuda_bitonic_merge.bitonic_merge_reference(tuple(src), 2, 1 << 16), 3)
+    key = pair_key(src[0], src[1])
+    merge_lib_ms = time_ms(lambda: torch.sort(key), 5)
+    del src, key
+    merge_bound_ms = n_merge * 3 * 4 * 2 / HBM_BYTES_PER_S * 1e3
+    log(f"[merge] [{n_merge}] rows x 3 lanes: kernel {merge_ms:.4f} ms, plain "
+        f"{merge_plain_ms:.4f} ms, torch.sort of the packed key {merge_lib_ms:.4f} ms, bound "
+        f"{merge_bound_ms:.4f} ms; phase 9 {time.perf_counter() - t9:.2f} s")
+
+    # --- 10. the probes on the card; each probe's counts are zeroed just
+    # before it and read just after
+    t10 = time.perf_counter()
+    cuda_bitonic_merge.LAUNCHES = 0
+    lines = split_merge_probe.run(27)
+    split_launches = cuda_bitonic_merge.LAUNCHES
+    check(lines[0]["keys_ok"] and lines[0]["rows_multiset_ok"], "split_merge: not exact")
+    check(len(lines) == 4 and all(x["marginal_s"] > 0 for x in lines[1:]),
+          f"split_merge: {len(lines)} lines")
+    check(split_launches > 0, "split_merge launched no bitonic merge")
+    cuda_bitonic_merge.LAUNCHES = 0
+    res = resume_merge_probe.run()
+    resume_launches = cuda_bitonic_merge.LAUNCHES
+    check(resume_launches > 0, "resume_merge launched no bitonic merge")
+    check(res["host_s"] > 0 and res["device_roundtrip_s"] > 0 and res["kernel_ms"] > 0,
+          f"resume_merge: {res}")
+    cuda_probe.COPY_LAUNCHES = cuda_probe.TRANSPOSE_LAUNCHES = 0
+    probes = cuda_probe.run(24)
+    copy_launches, tr_launches = cuda_probe.COPY_LAUNCHES, cuda_probe.TRANSPOSE_LAUNCHES
+    check(copy_launches > 0 and tr_launches > 0, "cuda_probe launched no pass kernel")
+    check([p["probe"] for p in probes] == ["copy_pass", "transpose_pass"], "cuda_probe lines")
+    log(f"[probes] bitonic merge launches: split_merge {split_launches}, resume_merge "
+        f"{resume_launches}; pass launches: copy {copy_launches}, transpose {tr_launches}; "
+        f"phase 10 {time.perf_counter() - t10:.2f} s")
+
     # bounds: each input byte read once, each output byte written once
     rp = 4096 * (4096 - 28 + 1)
     kernels = [
@@ -694,6 +825,13 @@ def main() -> int:
         ("block_sort", "fastkmer_tpu/ops/pallas_sort.py:150 (sort_blocks, "
          "_mk_block_sort_kernel)", stream_sort, sort_err, sort_ms, sort_plain_ms,
          sort_bound_ms, sort_lib_ms, "block_sort.cu"),
+        ("pass_copy", "benchmarks/pallas_probe.py:47 (copy_kernel)", copy_launches, pass_err,
+         copy_ms, pass_plain_ms, pass_bound_ms, pass_lib_ms, "pass_probe.cu"),
+        ("pass_transpose", "benchmarks/pallas_probe.py:54 (tr_kernel)", tr_launches, pass_err,
+         tr_ms, pass_plain_ms, pass_bound_ms, pass_lib_ms, "pass_probe.cu"),
+        ("bitonic_merge", "benchmarks/pallas_bitonic_merge.py:116 (bitonic_merge, "
+         "_mk_cross_kernel + _mk_clean_kernel)", split_launches + resume_launches, merge_err,
+         merge_ms, merge_plain_ms, merge_bound_ms, merge_lib_ms, "bitonic_merge.cu"),
     ]
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": f"fastkmer_tpu_torch/csrc/{src}",

@@ -7,7 +7,9 @@ mesh jobs (per batch and streaming, with and without the block-sort
 compaction) on cuda against the same jobs on the CPU; edge shapes of
 both redesigned kernels (k = m + 1, k = 256, rows of k bases, a row ending
 on a block of starts; all-equal and mostly-sentinel sort blocks, 13 keys, and
-the tiled route).  No jax is needed, so a machine with a
+the tiled route); the probes' kernels D (bitonic merge: keys bit-equal to the
+plain version and to the sorted keys, rows the same multiset) and E (the two
+pass probes: bit-equal, 0xFFFFFFFF wrapping to 0).  No jax is needed, so a machine with a
 card and no jax runs them without the jax-importing conftest:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -20,8 +22,9 @@ torch = pytest.importorskip("torch")
 
 from fastkmer_tpu_torch import pipeline  # noqa: E402
 from fastkmer_tpu_torch.config import JobConfig  # noqa: E402
+from fastkmer_tpu_torch.benchmarks import cuda_bitonic_merge, cuda_probe  # noqa: E402
 from fastkmer_tpu_torch.ingest import batch as batching  # noqa: E402
-from fastkmer_tpu_torch.ops import cuda_extract, cuda_sort, extract  # noqa: E402
+from fastkmer_tpu_torch.ops import count_sort, cuda_extract, cuda_sort, extract  # noqa: E402
 from fastkmer_tpu_torch.parallel import driver, exchange  # noqa: E402
 
 
@@ -257,3 +260,71 @@ def test_streaming_mesh_cuda_matches_cpu(cuda, tmp_path, monkeypatch, k, m, bloc
         np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
     assert got.exchange_bytes == want.exchange_bytes and got.n_instances > 0
     assert got.n_dedup_batches == want.n_dedup_batches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [128, 256, 1 << 17])
+def test_pass_probe_kernels_match_plain(cuda, rows):
+    rng = np.random.default_rng(rows)
+    a, b = (torch.from_numpy(rng.integers(-(1 << 31), 1 << 31, size=(rows, 128),
+                                          dtype=np.int64).astype(np.int32)) for _ in range(2))
+    a[0, :3] = -1  # 0xFFFFFFFF: wraps to 0
+    b[-1, -1] = -1
+    a, b = a.to(cuda), b.to(cuda)
+    for fn, counter in ((cuda_probe.copy_pass, "COPY_LAUNCHES"),
+                        (cuda_probe.transpose_pass, "TRANSPOSE_LAUNCHES")):
+        before = getattr(cuda_probe, counter)
+        got = fn(a, b)
+        torch.cuda.synchronize()
+        assert getattr(cuda_probe, counter) == before + 1
+        for g, x in zip(got, (a, b)):
+            assert g.is_cuda and g.dtype == torch.int32 and g.shape == x.shape
+            assert torch.equal(g, cuda_probe.pass_reference(x))
+        assert int(got[0][0, 0]) == 0 and int(got[1][-1, -1]) == 0
+
+
+def _merge_matches_plain(cuda, lanes: list, keys: int) -> None:
+    """Kernel D on [A ascending | B descending] rows of ``lanes`` against its
+    plain version: keys bit-equal (and equal to the sorted keys), rows the
+    same multiset."""
+    src = cuda_bitonic_merge.bitonic_input(tuple(lanes), keys)
+    before = cuda_bitonic_merge.LAUNCHES
+    got = cuda_bitonic_merge.bitonic_merge_(src.to(cuda), keys, 1024)
+    torch.cuda.synchronize()
+    assert cuda_bitonic_merge.LAUNCHES == before + 1
+    got = [g.cpu() for g in got]
+    ref = cuda_bitonic_merge.bitonic_merge_reference(tuple(src), keys, 1024)
+    want = count_sort.sort_columns(list(lanes[:keys]))[0]
+    for g, r, w in zip(got[:keys], ref[:keys], want):
+        assert torch.equal(g, r) and torch.equal(g, w)
+    for g, r in zip(count_sort.sort_columns(got)[0], count_sort.sort_columns(list(ref))[0]):
+        assert torch.equal(g, r)  # the rows, as a multiset
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("keys,vals", [(1, 0), (1, 1), (2, 0), (2, 1), (3, 0), (3, 1)])
+@pytest.mark.parametrize("N", [1 << 11, 1 << 17])
+def test_bitonic_merge_kernel_matches_plain(cuda, keys, vals, N):
+    """N = 2^11 is one shared-memory tile; 2^17 is several, with cross
+    stages in device memory."""
+    _merge_matches_plain(cuda, _sort_lanes(N + keys * 2 + vals, N, keys, vals), keys)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["equal", "sentinel", "15+1"])
+def test_bitonic_merge_kernel_edge_cases(cuda, case):
+    """All-equal keys; halves that are mostly sentinel rows of count 0 (the
+    resume probe's padding); 15 keys and a value (run-time lane counts, a
+    2048-row tile)."""
+    N = 1 << 16
+    keys = 15 if case == "15+1" else 2
+    lanes = _sort_lanes(keys + 29, N, keys, 1)
+    if case == "equal":
+        for c in lanes[:keys]:
+            c.fill_(5)
+    elif case == "sentinel":
+        dead = torch.rand(N, generator=torch.Generator().manual_seed(4)) < 0.9
+        for c in lanes[:keys]:
+            c[dead] = -1
+        lanes[-1][dead] = 0
+    _merge_matches_plain(cuda, lanes, keys)

@@ -3,9 +3,10 @@
 A fresh interpreter (this test process has jax loaded by conftest)
 imports every module of the port, counts a 2-read FASTA on the CPU on one
 device, on a 2-shard per-batch mesh and on a 2-shard streaming mesh, and
-finds no jax, jaxlib, triton, fastkmer_tpu or fastkmer_tpu.* module.  A
-second check reads the sources: no module of the port and not
-chip_smoke.py names fastkmer_tpu in an import."""
+finds no jax, jaxlib, triton, fastkmer_tpu, fastkmer_tpu.* or root
+benchmarks module.  A second check reads the sources: no module of the port
+and not chip_smoke.py names fastkmer_tpu, jax or the root benchmarks package
+in an import (the port's own probes are fastkmer_tpu_torch.benchmarks)."""
 
 import os
 import re
@@ -31,6 +32,9 @@ from fastkmer_tpu_torch.output import manifest, writer
 from fastkmer_tpu_torch.output import native as out_native
 from fastkmer_tpu_torch.parallel import driver, exchange, partitioner, stream
 from fastkmer_tpu_torch.utils import cudabuild, nativebuild, timing
+from fastkmer_tpu_torch.benchmarks import (compact_probe, cuda_bitonic_merge, cuda_probe,
+                                           primitives, resume_merge_probe, roofline,
+                                           split_merge_probe)
 
 fa = sys.argv[1]
 with open(fa, "w") as f:
@@ -46,8 +50,9 @@ parts = [(res.words[:2], res.counts[:2], res.bins[:2]), (res.words[1:], res.coun
 merged = pipeline.merge_partials(parts, 1)
 assert merged[0].shape[0] == res.words.shape[0]
 assert cuda_extract.LAUNCHES == cuda_extract.FULL_LAUNCHES == cuda_sort.LAUNCHES == 0
+assert cuda_bitonic_merge.LAUNCHES == cuda_probe.COPY_LAUNCHES == cuda_probe.TRANSPOSE_LAUNCHES == 0
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "triton", "fastkmer_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "triton", "fastkmer_tpu", "benchmarks"))
 assert not bad, bad
 print("OK", res.n_instances, len(res.counts))
 """
@@ -76,6 +81,6 @@ def test_port_sources_name_no_jax_package():
         with open(path) as f:
             for mod in _IMPORT.findall(f.read()):
                 name = (mod[0] or mod[1]).split(".")[0].rstrip(",")
-                if name in ("fastkmer_tpu", "jax", "jaxlib"):
+                if name in ("fastkmer_tpu", "jax", "jaxlib", "benchmarks"):
                     bad.append((os.path.relpath(path, REPO), mod))
     assert not bad, bad
