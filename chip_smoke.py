@@ -14,7 +14,8 @@ process exits non-zero:
    power limit;
 2. build: compiles the kernels with nvcc and prints the seconds taken and
    ptxas's registers and spill bytes for each kernel; the redesigned
-   kernels (full-mode extract, cluster block sort) must spill nothing;
+   kernels (full-mode extract, cluster block sort, the merge path's
+   partition and merge, the pass probes) must spill nothing;
 3. kernel vs plain: the extract kernel against its plain torch version on
    the card (``torch.equal``) for every listed (k, m), at [512, 4096] and a
    ragged [3, k+5], and at phase 5's [4096, 4096] for k=28, where both are
@@ -66,18 +67,24 @@ process exits non-zero:
    version as in phase 3c, and the kernel (in place, on a fresh unsorted
    copy each call), its plain version and ``torch.sort`` of the packed key
    (the library yardstick) are timed;
-8. kernel E (``cuda_probe.copy_pass`` / ``transpose_pass``) against its
-   plain version (``torch.equal``) at 2^14 and 2^24 values a lane and on
-   lanes with 0xFFFFFFFF entries; both passes, the plain version and the
-   library's int32 ``a + 1`` on each lane timed at 2^24;
-9. kernel D (``cuda_bitonic_merge.bitonic_merge_``) against its plain
+8. kernel E (``cuda_probe.copy_pass`` / ``transpose_pass``)
+   against its plain version (``torch.equal``) at 2^14 and 2^24 values a
+   lane, at 131 tiles a lane (uneven among the persistent transpose CTAs)
+   and on lanes with 0xFFFFFFFF entries; the copy, the transpose,
+   the plain version, the library's int32 ``a + 1`` on each lane (the
+   same function) and the library's own transpose round trip (an extra
+   yardstick) timed at 2^24;
+9. kernel D (``cuda_bitonic_merge``, the merge path) against its plain
    version for 1-3 keys with and without a value lane at 2^11 (one tile),
-   2^15 and 2^17 rows, and at 2^17 for all-equal keys and mostly-sentinel
-   halves: keys equal to the plain version's and to the sorted keys, rows
-   the same multiset; then at 2^27 rows x 3 lanes (2 keys + 1 value, the
-   split-merge probe's shape) the same checks, and the kernel (in place, on
-   a fresh copy each call), its plain version and ``torch.sort`` of the
-   packed key timed;
+   2^15 and 2^17 rows, at 2^17 for all-equal keys and mostly-sentinel
+   halves, and at 2^16 for tiles wholly from A then B (and the reverse)
+   and runs longer than a tile: keys equal to the plain version's and to
+   the sorted keys, rows the same multiset, in place and out of place
+   equal; then at 2^27 rows x 3 lanes (2 keys + 1 value, the split-merge
+   probe's shape) the same checks, and the kernel's two launches (into a
+   preallocated buffer and scratch), the in-place form (a fresh copy each
+   call, the copy back included), its plain version and ``torch.sort`` of
+   the packed key timed;
 10. the probes on the card, each with the kernels' counts set to 0 just
    before it: ``split_merge_probe.run(27)`` (its exactness fields must
    hold), ``resume_merge_probe.run()`` and ``cuda_probe.run(24)``; their
@@ -280,7 +287,11 @@ def merge_matches_plain(cbm, count_sort, lanes: tuple, keys: int) -> int:
 
     src = cbm.bitonic_input(lanes, keys)
     got = cbm.bitonic_merge_(src.clone(), keys, 1024)
+    new = cbm.bitonic_merge(tuple(src), keys, 1024)  # out of place
     torch.cuda.synchronize()
+    for g, w in zip(got, new):
+        check(torch.equal(g, w), "merge: in place and out of place differ")
+    del new
     ref = cbm.bitonic_merge_reference(tuple(src), keys, 1024)
     want = count_sort.sort_columns(list(lanes[:keys]))[0]
     n = lanes[0].numel()
@@ -362,7 +373,8 @@ def main() -> int:
                 ptxas_kernels(cudabuild.ptxas_report(lib, srcs)).items()):
             log(f"[build] ptxas {fn}: {regs} registers, {spill} spill bytes, "
                 f"{stack} bytes stack frame")
-            check(spill == 0 or not re.search("extract_full|cluster_sort", fn),
+            check(spill == 0 or not re.search("extract_full|cluster_sort|merge_partition|"
+                                              "merge_tile|copy_pass|transpose_pass", fn),
                   f"{fn} spills {spill} bytes")
 
     # --- 3. kernel vs plain on the card ------------------------------------
@@ -714,20 +726,23 @@ def main() -> int:
     t8 = time.perf_counter()
     gen8 = torch.Generator(dev).manual_seed(8)
     pass_err = 0
-    for case, n in (("2^14", 1 << 14), ("2^24", 1 << 24), ("0xFFFFFFFF entries", 1 << 15)):
+    passes = [("copy_pass", cuda_probe.copy_pass), ("transpose_pass", cuda_probe.transpose_pass)]
+    for case, n in (("2^14", 1 << 14), ("2^24", 1 << 24), ("131 tiles", 131 << 14),
+                    ("0xFFFFFFFF entries", 1 << 15)):
         a, b = (rand_i32(gen8, n, dev).view(-1, 128) for _ in range(2))
         if case == "0xFFFFFFFF entries":
             a[:, ::7] = -1
             b[0] = -1
-        for fn in (cuda_probe.copy_pass, cuda_probe.transpose_pass):
+        for name, fn in passes:
             got = fn(a, b)
             torch.cuda.synchronize()
             for g, x in zip(got, (a, b)):
                 r = cuda_probe.pass_reference(x)
                 pass_err = max(pass_err, int((g.to(torch.int64) - r.to(torch.int64)).abs().max()))
-                check(torch.equal(g, r), f"{fn.__name__} != plain at {case}")
-        if case == "0xFFFFFFFF entries":
-            check(int(got[0][0, 0]) == 0 and int(got[1][0, 5]) == 0, "0xFFFFFFFF did not wrap")
+                check(torch.equal(g, r), f"{name} != plain at {case}")
+            if case == "0xFFFFFFFF entries":
+                check(int(got[0][0, 0]) == 0 and int(got[1][0, 5]) == 0,
+                      f"{name}: 0xFFFFFFFF did not wrap")
         log(f"[pass] copy and transpose == plain at {case} ([{n // 128}, 128] x 2)")
         if case == "2^24":
             copy_ms = time_ms(lambda: cuda_probe.copy_pass(a, b), 50)
@@ -735,11 +750,18 @@ def main() -> int:
             pass_plain_ms = time_ms(lambda: (cuda_probe.pass_reference(a),
                                              cuda_probe.pass_reference(b)), 10)
             pass_lib_ms = time_ms(lambda: (a + 1, b + 1), 50)
+
+            def lib_round_trip(x):  # the library's transpose, + 1, and back
+                t = x.view(-1, 128, 128).transpose(1, 2).contiguous() + 1
+                return t.transpose(1, 2).contiguous()
+
+            lib_tr_ms = time_ms(lambda: (lib_round_trip(a), lib_round_trip(b)), 20)
     del a, b, got
     pass_bound_ms = 2 * 2 * (1 << 24) * 4 / HBM_BYTES_PER_S * 1e3
-    log(f"[pass] 2^24 x 2 lanes: copy {copy_ms:.4f} ms, transpose {tr_ms:.4f} ms, plain "
-        f"{pass_plain_ms:.4f} ms, int32 a + 1 {pass_lib_ms:.4f} ms, bound {pass_bound_ms:.4f} ms "
-        f"(copy {2 * 2 * (1 << 24) * 4 / copy_ms / 1e6:.1f} GB/s); phase 8 "
+    log(f"[pass] 2^24 x 2 lanes: copy {copy_ms:.4f} ms, transpose {tr_ms:.4f} ms, plain {pass_plain_ms:.4f} ms, int32 a + 1 "
+        f"{pass_lib_ms:.4f} ms, library transpose round trip {lib_tr_ms:.4f} ms, bound "
+        f"{pass_bound_ms:.4f} ms (copy {2 * 2 * (1 << 24) * 4 / copy_ms / 1e6:.1f} GB/s, "
+        f"transpose {pass_bound_ms / tr_ms:.1%} of the bound); phase 8 "
         f"{time.perf_counter() - t8:.2f} s")
 
     # --- 9. kernel D, the bitonic merge, vs plain on the card ----------------------
@@ -752,7 +774,7 @@ def main() -> int:
                 lanes = sort_lanes(rng9, torch, dev, n, keys, vals)
                 merge_err = max(merge_err, merge_matches_plain(cuda_bitonic_merge, count_sort,
                                                                lanes, keys))
-        log(f"[merge] {n} rows (tile {cuda_bitonic_merge.tile_rows(3, n)} at 3 lanes): "
+        log(f"[merge] {n} rows (tile {cuda_bitonic_merge.merge_tile(3, n)} at 3 lanes): "
             "kernel == plain for 1-3 keys, with and without a value")
     for case in ("all-equal keys", "mostly sentinel"):
         lanes = sort_lanes(rng9, torch, dev, 1 << 17, 2, 1)
@@ -766,6 +788,18 @@ def main() -> int:
             lanes[-1][dead] = 0
         merge_err = max(merge_err, merge_matches_plain(cuda_bitonic_merge, count_sort, lanes, 2))
         log(f"[merge] {1 << 17} rows, {case}: kernel == plain")
+    n16 = 1 << 16  # 32 tiles of merge_tile(3, n16) = 2048 rows
+    idx = torch.arange(n16, dtype=torch.int32, device=dev)
+    for case in ("A below B", "B below A", "runs longer than a tile"):
+        lanes = sort_lanes(rng9, torch, dev, n16, 2, 1)
+        if case == "A below B":  # tiles wholly from A, then wholly from B
+            lanes[0].copy_(idx % 1000 + 5000 * (idx >= n16 // 2))
+        elif case == "B below A":
+            lanes[0].copy_(idx % 1000 + 5000 * (idx < n16 // 2))
+        else:  # runs of 8192 rows, A's and B's alternating
+            lanes[0].copy_((idx % (n16 // 2)) // 8192 * 2 + (idx >= n16 // 2).to(torch.int32))
+        merge_err = max(merge_err, merge_matches_plain(cuda_bitonic_merge, count_sort, lanes, 2))
+        log(f"[merge] {n16} rows, {case}: kernel == plain")
     n_merge = 1 << 27  # split_merge_probe's shape: 2 keys + 1 value
     gen9 = torch.Generator(dev).manual_seed(9)
     lanes = (rand_i32(gen9, n_merge, dev), rand_i32(gen9, n_merge, dev),
@@ -774,19 +808,26 @@ def main() -> int:
     log(f"[merge] [{n_merge}] rows x 3 lanes: kernel == plain, keys == torch.sort's")
     src = cuda_bitonic_merge.bitonic_input(lanes, 2)
     del lanes
-    buf = torch.empty_like(src)
-    merge_ms = time_ms(lambda: cuda_bitonic_merge.bitonic_merge_(buf, 2, 1 << 16), 10,
-                       setup=lambda: buf.copy_(src))
-    del buf
+    # the kernel's two launches into a preallocated buffer and scratch
+    out = torch.empty_like(src)
+    splits = torch.empty(n_merge // cuda_bitonic_merge.merge_tile(3, n_merge) + 1,
+                         dtype=torch.int64, device=dev)
+    merge_ms = time_ms(lambda: cuda_bitonic_merge.merge_into(src, out, splits, 2), 10)
+    # the in-place form, its copy back included, on a fresh copy each call
+    buf = out
+    merge_inplace_ms = time_ms(lambda: cuda_bitonic_merge.bitonic_merge_(buf, 2, 1 << 16), 10,
+                               setup=lambda: buf.copy_(src))
+    del buf, out, splits
     merge_plain_ms = time_ms(
         lambda: cuda_bitonic_merge.bitonic_merge_reference(tuple(src), 2, 1 << 16), 3)
     key = pair_key(src[0], src[1])
     merge_lib_ms = time_ms(lambda: torch.sort(key), 5)
     del src, key
     merge_bound_ms = n_merge * 3 * 4 * 2 / HBM_BYTES_PER_S * 1e3
-    log(f"[merge] [{n_merge}] rows x 3 lanes: kernel {merge_ms:.4f} ms, plain "
-        f"{merge_plain_ms:.4f} ms, torch.sort of the packed key {merge_lib_ms:.4f} ms, bound "
-        f"{merge_bound_ms:.4f} ms; phase 9 {time.perf_counter() - t9:.2f} s")
+    log(f"[merge] [{n_merge}] rows x 3 lanes: kernel {merge_ms:.4f} ms (partition + merge), "
+        f"in place {merge_inplace_ms:.4f} ms, plain {merge_plain_ms:.4f} ms, torch.sort of the "
+        f"packed key {merge_lib_ms:.4f} ms, bound {merge_bound_ms:.4f} ms "
+        f"({merge_bound_ms / merge_ms:.1%}); phase 9 {time.perf_counter() - t9:.2f} s")
 
     # --- 10. the probes on the card; each probe's counts are zeroed just
     # before it and read just after

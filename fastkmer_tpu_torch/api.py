@@ -21,6 +21,7 @@ def count_kmers(
     output_directory: str | None = None,
     unique_ub: int | None = None,
     prededup: bool | None = None,
+    checkpoint_dir: str | None = None,
     device="cuda",
     **kw,
 ) -> CountResult:
@@ -30,7 +31,8 @@ def count_kmers(
     ``unique_ub``: asserted bound on distinct k-mers (e.g. genome length)
     -> sync-free device accumulation, verified at finalize.
     ``prededup``: per-batch pre-dedup for duplication-heavy inputs (None =
-    adaptive probing)."""
+    adaptive probing).  ``checkpoint_dir``: kill-and-resume (not yet ported:
+    raises ``NotImplementedError``)."""
     cfg = JobConfig(
         dataset=dataset,
         output_directory=output_directory or "",
@@ -43,7 +45,8 @@ def count_kmers(
         **kw,
     )
     return execute_job(
-        cfg, verbose=False, unique_ub=unique_ub, prededup=prededup, device=device
+        cfg, verbose=False, unique_ub=unique_ub, prededup=prededup,
+        checkpoint_dir=checkpoint_dir, device=device,
     )
 
 

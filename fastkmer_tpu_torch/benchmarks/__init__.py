@@ -6,8 +6,9 @@ their yardsticks:
 
 * ``cuda_probe``: kernel E, two device-memory pass probes (a streaming +1
   and a 128 x 128 transpose-touch-transpose), ``csrc/pass_probe.cu``;
-* ``cuda_bitonic_merge``: kernel D, the bitonic merge of [ascending |
-  descending] halves, ``csrc/bitonic_merge.cu``;
+* ``cuda_bitonic_merge``: kernel D, the merge of [ascending | descending]
+  halves (a merge path; the name is the JAX probe's),
+  ``csrc/bitonic_merge.cu``;
 * ``split_merge_probe``: one 2-key sort against two half sorts and kernel D;
 * ``resume_merge_probe``: the host k-way merge of two sorted parts against
   a round trip through the card and kernel D;

@@ -54,10 +54,15 @@ def slope(fn, args: tuple, dev: torch.device, iters: int = 10, warmup: int = 2):
     return (t_hi - t_lo) / iters, t_lo / iters
 
 
+BUSY_CYCLES = 2_000_000  # about a millisecond of the card's clock
+
+
 def time_ms(fn, iters: int, setup=None) -> float:
     """Median milliseconds of ``fn`` on the current card by CUDA events,
     after one warm-up call; ``setup`` runs before each call, outside the
-    timed span."""
+    timed span.  A spin kernel of ``BUSY_CYCLES`` keeps the card busy while
+    the host queues the events and ``fn``'s launches, so the span holds the
+    device's time and not the host's time to launch."""
     if setup is not None:
         setup()
     fn()
@@ -66,6 +71,7 @@ def time_ms(fn, iters: int, setup=None) -> float:
     for _ in range(iters):
         if setup is not None:
             setup()
+        torch.cuda._sleep(BUSY_CYCLES)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()

@@ -1,4 +1,4 @@
-"""Bitonic merge of two sorted halves: kernel D and its wrapper.
+"""Merge of two sorted halves: kernel D and its wrapper.
 
 ``bitonic_merge`` replaces ``benchmarks/pallas_bitonic_merge.bitonic_merge``
 (the Pallas ``_mk_cross_kernel`` and ``_mk_clean_kernel``): int32 [N] lanes
@@ -9,19 +9,26 @@ the other lanes ride along.  Ties land in no particular order and the rows
 stay the same multiset, as with the Pallas version.  N is a power of two
 >= 2 block and ``block`` a power of two >= 1024, the bounds the JAX version
 asserts, so the same calls are legal in both packages.  ``block`` is the
-TPU's tile and nothing more here: the kernel picks its own shared-memory
-tile from the lane count, ``tile_rows(lanes, N)``, the largest power of two
-<= N whose lanes fit in 227 KB.  Strides from N/2 down to the tile take one
-device-memory pass each, the rest one pass.
+TPU's tile and nothing more here.
 
-For the halves to be bitonic, A's sentinels (all-ones keys) end A and B's
-lead B: sort B on bit-NOT keys and NOT them back, as ``bitonic_input`` does.
+The kernel is a merge path (``csrc/bitonic_merge.cu``; its header says what
+bounds it): a partition launch finds, for each output tile of
+``merge_tile(lanes, N)`` rows, how many of its rows come from A, and a merge
+launch builds each tile in shared memory from A and B read backwards.  It
+needs exactly the shape above, both halves sorted with A's sentinels
+(all-ones keys) at A's end and B's at B's front (``bitonic_input`` sorts B
+on bit-NOT keys and NOTs them back), not any bitonic sequence.  The merge is
+out of place: ``bitonic_merge`` returns the new buffer's lanes,
+``merge_into`` writes a caller's buffer (with the caller's scratch for the
+partition), and ``bitonic_merge_`` keeps its in-place contract by a copy
+back on the card.  ``merge_path_twin`` is the kernel's partition,
+per-thread co-ranks and tie rule in torch, at a small tile, for the CPU
+tests.
 
-The kernel lives in ``csrc/bitonic_merge.cu``; its header says what bounds
-it and how it is staged.  For a CUDA tensor the wrapper launches it or
-raises; only a CPU tensor takes the plain version,
-``bitonic_merge_reference``.  ``LAUNCHES`` counts the kernel's launches
-(one a call).
+For a CUDA tensor the wrappers launch the kernel or raise; only a CPU tensor
+takes the plain version, ``bitonic_merge_reference`` (the network the TPU
+ran).  ``LAUNCHES`` counts the kernel's runs (partition and merge, one a
+call).
 """
 
 from __future__ import annotations
@@ -33,23 +40,25 @@ import torch
 
 from ..core.tbits import pair_key
 from ..ops import count_sort
-from ..ops.cuda_sort import tile_rows  # rows a CTA merges in shared memory (227 KB)
 from ..utils import cudabuild
 
 LAUNCHES = 0
 
 MIN_BLOCK = 1024
+MERGE_THREADS = 256  # threads of a merge CTA
+TILE_BYTES = 32768  # shared memory of a merge CTA where it can: six fit an SM
+SMEM_BYTES = 232448  # the 227 KB a CTA may opt into
 
 
 @functools.cache
 def library() -> ctypes.CDLL:
     """Build (at first use) and load the kernel's library."""
     lib = cudabuild.load("fkbitonicmerge", ("bitonic_merge.cu",))
-    lib.fk_bitonic_merge.argtypes = [
-        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p,
+    lib.fk_merge_path.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ]
-    lib.fk_bitonic_merge.restype = ctypes.c_int
+    lib.fk_merge_path.restype = ctypes.c_int
     return lib
 
 
@@ -107,38 +116,167 @@ def bitonic_merge_reference(cols: tuple, num_keys: int, block: int = 1 << 16) ->
     return lanes
 
 
+def merge_tile(lanes: int, N: int) -> int:
+    """Output rows a merge CTA builds: the largest power of two <= N whose
+    rows and source indices ((lanes + 1) · 4 bytes a row) fit in
+    ``TILE_BYTES``, or in the whole 227 KB when that leaves fewer rows than
+    threads."""
+    for budget in (TILE_BYTES, SMEM_BYTES):
+        tile = 1 << ((budget // (4 * (lanes + 1))).bit_length() - 1)
+        if tile >= MERGE_THREADS:
+            return min(tile, N)
+    raise ValueError(f"{lanes} lanes: a merge tile of {MERGE_THREADS} rows does not fit")
+
+
 def bitonic_merge(cols: tuple, num_keys: int, block: int = 1 << 16) -> tuple:
     """Merge [A ascending | B descending] int32 [N] lanes into one ascending
     sequence.  Returns new lanes (views of one [lanes, N] buffer), as the
     JAX version returns new arrays; the inputs are not modified."""
     _check(tuple(cols), num_keys, block)
-    return bitonic_merge_(torch.stack(tuple(cols)), num_keys, block)
+    src = torch.stack(tuple(cols))
+    if src.device.type == "cpu":
+        return bitonic_merge_(src, num_keys, block)
+    out = torch.empty_like(src)
+    return merge_into(src, out, _splits(src), num_keys)
+
+
+def _splits(buf: torch.Tensor) -> torch.Tensor:
+    """The partition's scratch: one int64 a tile boundary."""
+    lanes, N = buf.shape
+    return torch.empty(N // merge_tile(lanes, N) + 1, dtype=torch.int64, device=buf.device)
+
+
+def _buffer(buf: torch.Tensor, num_keys: int, block: int) -> tuple:
+    if buf.dim() != 2 or not buf.is_contiguous():
+        raise ValueError("the buffer must be a contiguous [lanes, N] tensor")
+    cols = buf.unbind(0)
+    _check(cols, num_keys, block)
+    return cols
+
+
+def merge_into(src: torch.Tensor, out: torch.Tensor, splits: torch.Tensor,
+               num_keys: int) -> tuple:
+    """The kernel's two launches: merge the contiguous int32 [lanes, N] ``src``
+    into ``out`` (same shape, not overlapping it), with ``splits`` (int64,
+    N / merge_tile(lanes, N) + 1) as the partition's scratch.  CUDA tensors
+    only.  Returns ``out``'s lanes."""
+    global LAUNCHES
+    _buffer(src, num_keys, MIN_BLOCK)
+    cols = _buffer(out, num_keys, MIN_BLOCK)
+    lanes, N = src.shape
+    dev = src.device
+    if dev.type != "cuda":
+        raise ValueError(f"merge_into runs the kernel: {dev} is not a CUDA device")
+    if out.shape != src.shape or out.device != dev or splits.device != dev:
+        raise ValueError("src and out must have one shape and one device with splits")
+    tile = merge_tile(lanes, N)
+    if splits.dtype != torch.int64 or splits.numel() < N // tile + 1:
+        raise ValueError(f"splits must hold {N // tile + 1} int64")
+    lo, hi = src.data_ptr(), src.data_ptr() + src.numel() * 4
+    if lo < out.data_ptr() + out.numel() * 4 and out.data_ptr() < hi:
+        raise ValueError("the merge is out of place: out overlaps src")
+    err = library().fk_merge_path(
+        src.data_ptr(), out.data_ptr(), splits.data_ptr(), N, lanes, num_keys, tile,
+        dev.index or 0, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err:
+        raise RuntimeError(f"merge path kernel launch failed: CUDA error {err}")
+    LAUNCHES += 1
+    return cols
 
 
 def bitonic_merge_(buf: torch.Tensor, num_keys: int, block: int = 1 << 16) -> tuple:
     """``bitonic_merge`` in place on a contiguous int32 [lanes, N] buffer,
     for a caller that builds its lanes there (the JAX version has no
-    in-place form: it returns new arrays).  Returns the buffer's lanes."""
-    global LAUNCHES
-    if buf.dim() != 2 or not buf.is_contiguous():
-        raise ValueError("the buffer must be a contiguous [lanes, N] tensor")
-    cols = buf.unbind(0)
-    _check(cols, num_keys, block)
+    in-place form: it returns new arrays).  On the card the kernel writes a
+    new buffer, copied back.  Returns the buffer's lanes."""
+    cols = _buffer(buf, num_keys, block)
     dev = buf.device
     if dev.type == "cpu":
         _network_(cols, num_keys)
         return cols
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    N = buf.shape[1]
-    err = library().fk_bitonic_merge(
-        buf.data_ptr(), N, len(cols), num_keys, tile_rows(len(cols), N), dev.index or 0,
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    if err:
-        raise RuntimeError(f"bitonic merge kernel launch failed: CUDA error {err}")
-    LAUNCHES += 1
+    out = torch.empty_like(buf)
+    merge_into(buf, out, _splits(buf), num_keys)
+    buf.copy_(out)
     return cols
+
+
+def _key_at(lanes: list, idx: torch.Tensor) -> list:
+    return [c[idx] for c in lanes]
+
+
+def _corank(d, na, nb, a_key, b_key) -> torch.Tensor:
+    """For each diagonal d (with its ranges' lengths na, nb): the co-rank i,
+    A's rows among the first d of the merge, by the kernel's binary search
+    and tie rule (move right past A[mid] unless B[d - 1 - mid] is strictly
+    less).  ``a_key(idx)`` / ``b_key(idx)`` give the key lanes at indices
+    clamped into range; every argument is an int64 tensor of one shape."""
+    lo = (d - nb).clamp(min=0)
+    hi = torch.minimum(d, na)
+    while bool((lo < hi).any()):
+        live = lo < hi
+        mid = (lo + hi) // 2
+        b_less = _less(b_key((d - 1 - mid).clamp(min=0)), a_key(mid))
+        lo = torch.where(live & ~b_less, mid + 1, lo)
+        hi = torch.where(live & b_less, mid, hi)
+    return lo
+
+
+def merge_path_twin(cols: tuple, num_keys: int, tile: int = 64,
+                    rows_per_thread: int = 8) -> tuple:
+    """The kernel's merge path in torch, at a small ``tile``: the partition's
+    co-ranks at every tile boundary, each tile's A and rev-B ranges
+    gathered as the merge CTA loads them, each thread's co-rank inside its
+    tile (threads of ``rows_per_thread`` rows), its serial merge (A first
+    on equal keys) recording each output row's source, and the gather.
+    Returns new lanes; for the CPU tests of the kernel's index arithmetic."""
+    _check(tuple(cols), num_keys, MIN_BLOCK)
+    N = cols[0].shape[0]
+    h = N // 2
+    if tile & (tile - 1) or not rows_per_thread <= tile <= N or tile % rows_per_thread:
+        raise ValueError(f"tile={tile} with {rows_per_thread} rows a thread")
+    lanes = list(cols)
+    keys = lanes[:num_keys]
+    full = torch.full((), h, dtype=torch.int64)
+
+    def a_key(i):
+        return _key_at(keys, i.clamp(max=h - 1))
+
+    def b_key(j):  # rev-B's row j is row N - 1 - j
+        return _key_at(keys, N - 1 - j.clamp(max=h - 1))
+
+    # partition: splits[t] = co-rank of t · tile
+    d = torch.arange(0, N + 1, tile, dtype=torch.int64)
+    splits = _corank(d, full.expand_as(d), full.expand_as(d), a_key, b_key)
+    T = N // tile
+    a0, na = splits[:-1], splits[1:] - splits[:-1]  # [T]
+    b0 = N - 1 - (d[:-1] - a0)  # rev-B's first row of each tile, read downwards
+    r = torch.arange(tile, dtype=torch.int64)
+    rows = torch.where(r < na[:, None], a0[:, None] + r, b0[:, None] - (r - na[:, None]))
+    sm = [c[rows] for c in lanes]  # [T, tile] each: the CTA's shared rows
+    skeys = sm[:num_keys]
+    # each thread's co-rank inside its tile, then its serial merge
+    P = tile // rows_per_thread
+    td = (torch.arange(P, dtype=torch.int64) * rows_per_thread).expand(T, P)
+    tna, tnb = na[:, None].expand(T, P), (tile - na)[:, None].expand(T, P)
+    tt = torch.arange(T)[:, None].expand(T, P)
+
+    def sa_key(i):
+        return [k[tt, i.clamp(max=tile - 1)] for k in skeys]
+
+    def sb_key(j):
+        return [k[tt, (tna + j).clamp(max=tile - 1)] for k in skeys]
+
+    i = _corank(td, tna, tnb, sa_key, sb_key)
+    j = td - i
+    src = torch.empty((T, tile), dtype=torch.int64)
+    for k in range(rows_per_thread):
+        take_a = (j >= tnb) | ((i < tna) & ~_less(sb_key(j), sa_key(i)))
+        src[:, k::rows_per_thread] = torch.where(take_a, i, tna + j)
+        i, j = i + take_a, j + ~take_a
+    return tuple(torch.gather(c, 1, src).reshape(N) for c in sm)
 
 
 def bitonic_input(cols: tuple, num_keys: int) -> torch.Tensor:

@@ -18,6 +18,12 @@ says what bounds them.  For a CUDA tensor a wrapper launches its kernel or
 raises; only CPU tensors take the plain version, ``pass_reference``.
 ``COPY_LAUNCHES`` and ``TRANSPOSE_LAUNCHES`` count launches.
 
+The transpose's shared-memory layout is ``swizzle`` and its warps' 16-byte
+accesses are ``transpose_accesses``, the same arithmetic as the kernel's,
+so the CPU tests check that the layout is a bijection and that no access
+waits on a bank conflict; ``transpose_twin`` runs the kernel's schedule
+(load, T, S) on one tile in numpy.
+
     python -m fastkmer_tpu_torch.benchmarks.cuda_probe [lg] [--device cuda|cpu]
 
 prints one JSON line per pass at 2^lg values a lane (default 24): the
@@ -32,6 +38,7 @@ import ctypes
 import functools
 import time
 
+import numpy as np
 import torch
 
 from ..core.tbits import as_i32, as_u32
@@ -44,6 +51,9 @@ TRANSPOSE_LAUNCHES = 0
 
 LANES = 128  # the width of a row, as the Pallas probe shapes its columns
 CHUNK = 1 << 14  # values a Pallas copy step takes; N must be a multiple
+TILE = 128  # the transpose's tile is TILE x TILE values
+TILE_CHUNKS = TILE // 4  # 16-byte chunks a tile row
+TR_THREADS = 512  # threads of a transpose CTA
 
 
 @functools.cache
@@ -112,6 +122,75 @@ def transpose_pass(a: torch.Tensor, b: torch.Tensor) -> tuple:
     if a.is_cuda:
         TRANSPOSE_LAUNCHES += 1
     return out
+
+
+def swizzle(r, q):
+    """Shared index (in 16-byte chunks) of chunk q of row r of a tile: the
+    rows lie in order, and chunk q of row r at q ^ ((r >> 2) & 7) within its
+    row (``swizzle`` in csrc/pass_probe.cu).  Works on ints and arrays."""
+    return r * TILE_CHUNKS + (q ^ ((r >> 2) & 7))
+
+
+def transpose_accesses() -> dict:
+    """Each 16-byte shared-memory access pattern of ``transpose_pass``, as
+    {name: [rows, chunks]} int arrays of [instructions, 32 lanes] for one
+    warp (every warp's pattern is one of these up to the choice of J or L;
+    all of them are listed):
+
+    * ``load``: the cp.async copies, element e = k·512 + thread: row e / 32,
+      chunk e % 32 (warp w, instruction k: row 16k + w);
+    * ``T_read``: lane I reads block (I, J), rows 4I + i, chunk J;
+    * ``T_write``: lane I writes block (J, I), rows 4J + j, chunk I;
+    * ``S_read``: lane q reads block (q, L) of Y, rows 4q + i, chunk L."""
+    lane = np.arange(32)
+    out = {"load": [], "T_read": [], "T_write": [], "S_read": []}
+    for w in range(TR_THREADS // 32):
+        for k in range(TILE * TILE_CHUNKS // TR_THREADS):
+            e = k * TR_THREADS + 32 * w + lane
+            out["load"].append((e // TILE_CHUNKS, e % TILE_CHUNKS))
+    for blk in range(TILE_CHUNKS):  # J in T, L in S
+        for i in range(4):
+            out["T_read"].append((4 * lane + i, np.full(32, blk)))
+            out["T_write"].append((np.full(32, 4 * blk + i), lane))
+            out["S_read"].append((4 * lane + i, np.full(32, blk)))
+    return {k: [np.stack([r for r, _ in v]), np.stack([q for _, q in v])]
+            for k, v in out.items()}
+
+
+def bank_phases(rows: np.ndarray, chunks: np.ndarray, layout=swizzle) -> np.ndarray:
+    """Shared-memory phases each 16-byte warp access takes under ``layout``
+    (rows, chunks -> chunk index): a phase serves the eight lanes of a
+    quarter warp (128 bytes), once more for each extra lane that falls in a
+    16-byte bank group (4 banks) already taken.  [instructions, 32] ->
+    [instructions]; 4 is the least."""
+    group = layout(rows, chunks) % 8  # bank group: banks 4g .. 4g + 3
+    q = group.reshape(group.shape[0], 4, 8)
+    worst = np.stack([(q == g).sum(-1) for g in range(8)]).max(0)  # [instr, 4]
+    return worst.sum(-1)
+
+
+def transpose_twin(tile: np.ndarray) -> np.ndarray:
+    """``transpose_pass`` on one [128, 128] uint32 tile, in numpy, as the
+    kernel schedules it: the load into the swizzled X, T (each 4 x 4 block
+    (I, J) of X transposed in registers, + 1, written to Y as block (J, I)),
+    S (Y's block (q, L) transposed back, stored as chunk q of rows
+    4L .. 4L + 3).  Returns the stored tile."""
+    flat = tile.reshape(-1, 4)  # 16-byte chunks, row-major
+    X = np.zeros_like(flat)
+    Y = np.zeros_like(flat)
+    e = np.arange(TILE * TILE_CHUNKS)
+    X[swizzle(e // TILE_CHUNKS, e % TILE_CHUNKS)] = flat[e]
+    lane = np.arange(32)
+    for J in range(TILE_CHUNKS):
+        m = np.stack([X[swizzle(4 * lane + i, J)] for i in range(4)], 1)  # [lane, i, j]
+        for j in range(4):
+            Y[swizzle(4 * J + j, lane)] = m[:, :, j] + np.uint32(1)
+    out = np.zeros_like(flat)
+    for L in range(TILE_CHUNKS):
+        m = np.stack([Y[swizzle(4 * lane + i, L)] for i in range(4)], 1)
+        for j in range(4):
+            out[(4 * L + j) * TILE_CHUNKS + lane] = m[:, :, j]
+    return out.reshape(TILE, TILE)
 
 
 def run(lg: int = 24, device="cuda") -> list[dict]:

@@ -7,9 +7,11 @@ mesh jobs (per batch and streaming, with and without the block-sort
 compaction) on cuda against the same jobs on the CPU; edge shapes of
 both redesigned kernels (k = m + 1, k = 256, rows of k bases, a row ending
 on a block of starts; all-equal and mostly-sentinel sort blocks, 13 keys, and
-the tiled route); the probes' kernels D (bitonic merge: keys bit-equal to the
-plain version and to the sorted keys, rows the same multiset) and E (the two
-pass probes: bit-equal, 0xFFFFFFFF wrapping to 0).  No jax is needed, so a machine with a
+the tiled route); the probes' kernels D (the merge path, in place and out
+of place: keys bit-equal to the plain version and to the sorted keys, rows
+the same multiset, also where tiles come wholly from one half) and E (the
+copy and the transpose: bit-equal, 0xFFFFFFFF wrapping to 0, a tile
+count uneven among the persistent CTAs).  No jax is needed, so a machine with a
 card and no jax runs them without the jax-importing conftest:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -263,8 +265,11 @@ def test_streaming_mesh_cuda_matches_cpu(cuda, tmp_path, monkeypatch, k, m, bloc
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("rows", [128, 256, 1 << 17])
+@pytest.mark.parametrize("rows", [128, 256, 128 * 131, 1 << 17])
 def test_pass_probe_kernels_match_plain(cuda, rows):
+    """The copy and the transpose; 128 · 131 rows are 131 tiles a
+    lane, 262 in all, which do not divide evenly among the persistent
+    transpose CTAs."""
     rng = np.random.default_rng(rows)
     a, b = (torch.from_numpy(rng.integers(-(1 << 31), 1 << 31, size=(rows, 128),
                                           dtype=np.int64).astype(np.int32)) for _ in range(2))
@@ -293,6 +298,14 @@ def _merge_matches_plain(cuda, lanes: list, keys: int) -> None:
     torch.cuda.synchronize()
     assert cuda_bitonic_merge.LAUNCHES == before + 1
     got = [g.cpu() for g in got]
+    # the out-of-place form: new lanes, the input untouched, the same rows
+    dsrc = src.to(cuda)
+    new = cuda_bitonic_merge.bitonic_merge(tuple(dsrc), keys, 1024)
+    torch.cuda.synchronize()
+    assert cuda_bitonic_merge.LAUNCHES == before + 2
+    assert torch.equal(dsrc.cpu(), src)
+    for g, n in zip(got, new):
+        assert torch.equal(g, n.cpu())
     ref = cuda_bitonic_merge.bitonic_merge_reference(tuple(src), keys, 1024)
     want = count_sort.sort_columns(list(lanes[:keys]))[0]
     for g, r, w in zip(got[:keys], ref[:keys], want):
@@ -328,3 +341,25 @@ def test_bitonic_merge_kernel_edge_cases(cuda, case):
             c[dead] = -1
         lanes[-1][dead] = 0
     _merge_matches_plain(cuda, lanes, keys)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["a_below_b", "b_below_a", "runs", "smallest"])
+def test_merge_path_kernel_tile_edges(cuda, case):
+    """The merge path's hard cases at the kernel's own tiles (2048 rows at
+    3 lanes, 32 of them at 2^16 rows): tiles wholly from A, then wholly from B (and the reverse),
+    runs of one half longer than a tile, and the smallest legal N = 2048
+    (one tile)."""
+    N = 2048 if case == "smallest" else 1 << 16
+    lanes = _sort_lanes(N + len(case), N, 2, 1)
+    h = N // 2
+    idx = torch.arange(N, dtype=torch.int32)
+    if case == "a_below_b":
+        lanes[0][:h] = idx[:h] % 1000
+        lanes[0][h:] = 5000 + idx[h:] % 1000
+    elif case == "b_below_a":
+        lanes[0][:h] = 5000 + idx[:h] % 1000
+        lanes[0][h:] = idx[h:] % 1000
+    elif case == "runs":  # runs of 8192 equal leading keys, A and B alternating
+        lanes[0][:] = ((idx % h) // 8192) * 2 + (idx >= h).to(torch.int32)
+    _merge_matches_plain(cuda, lanes, 2)

@@ -229,6 +229,15 @@ def test_unported_execute_job_options_raise(tmp_path, mixed_fa, kw):
         tpipe.execute_job(cfg, verbose=False, device="cpu")
 
 
+def test_api_checkpoint_dir_reaches_the_job(tmp_path, mixed_fa):
+    """``count_kmers`` takes ``checkpoint_dir`` as the JAX API does and hands
+    it to the job, which says resume is not ported (not a ``JobConfig``
+    TypeError)."""
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        tapi.count_kmers(mixed_fa, k=25, m=8, bins=32, checkpoint_dir=str(tmp_path / "ck"),
+                         device="cpu")
+
+
 def test_part_weights_past_int32_spill_instead_of_wrapping():
     """Counted parts whose weights together pass 2^31 force a host spill
     (the device keeps int32 counts); the host merge sums in int64."""

@@ -11,6 +11,13 @@
   0xFFFFFFFF entries (which wrap to 0).  Exact.
 * The ValueErrors where the JAX versions assert or their grids cannot run.
 * The probes end to end at small sizes on ``device="cpu"``.
+* The CPU twins of the two kernels' designs: D's merge path
+  (``cuda_bitonic_merge.merge_path_twin``: partition, per-thread co-ranks,
+  the A-first tie rule, at 64- and 256-row tiles) against the JAX merge
+  and on the cases that break merge paths; E's swizzled shared layout
+  (a bijection on the tile, every warp access at the least bank phases)
+  and its load / T / S schedule (``cuda_probe.transpose_twin``) against the
+  Pallas ``tr_kernel``.  Integer outputs: bit-equality.
 """
 
 import numpy as np
@@ -243,3 +250,146 @@ def test_probes_refuse_cuda_without_a_card():
         split_merge_probe.run(12, "cuda")
     with pytest.raises(RuntimeError):
         cuda_probe.run(14)
+
+
+# --- the designs of kernels D (merge path) and E (swizzled transpose), on the CPU
+
+
+@pytest.mark.parametrize("case", MERGE_CASES, ids=lambda c: "k{}v{}b{}N{}".format(*c))
+def test_merge_path_twin_matches_jax(jax_merges, case):
+    """The kernel's partition, per-thread co-ranks and tie rule at a 64-row
+    tile against the JAX merge: keys bit-equal, rows the same multiset."""
+    n_keys = case[0]
+    inp, want = jax_merges[case]
+    cols = tuple(torch.from_numpy(inp[:, i].view(np.int32).copy()) for i in range(inp.shape[1]))
+    got = cuda_bitonic_merge.merge_path_twin(cols, n_keys, tile=64)
+    got = np.stack([g.numpy().view(np.uint32) for g in got], 1)
+    np.testing.assert_array_equal(got[:, :n_keys], want[:, :n_keys])
+    np.testing.assert_array_equal(_sorted_rows(got), _sorted_rows(want))
+
+
+def _edge_rows(case: str) -> tuple:
+    """[A ascending | B descending] rows (uint32 [N, lanes]) and the key
+    count of one case that breaks merge paths."""
+    rng = np.random.default_rng(len(case))
+    n_keys, n_vals, N = {"15+1": (15, 1, 2048), "smallest": (2, 1, 2048)}.get(case, (2, 1, 4096))
+    if case in ("15+1", "smallest"):
+        return _merge_input(n_keys, n_vals, N), n_keys
+    rows = rng.integers(0, 1 << 32, size=(N, n_keys + n_vals), dtype=np.uint64).astype(np.uint32)
+    h = N // 2
+    if case == "a_below_b":  # every tile wholly from A, then wholly from B
+        rows[:h, 0] = rng.integers(0, 1 << 20, size=h)
+        rows[h:, 0] = rng.integers(1 << 21, 1 << 22, size=h)
+    elif case == "b_below_a":
+        rows[:h, 0] = rng.integers(1 << 21, 1 << 22, size=h)
+        rows[h:, 0] = rng.integers(0, 1 << 20, size=h)
+    elif case == "runs":  # A and B alternate in runs longer than a tile
+        rows[:, 0] = rng.integers(0, 8, size=N) * (1 << 24) + np.arange(N) % 2
+    elif case == "equal":
+        rows[:, :n_keys] = 5
+    elif case == "sentinel":  # 90% of each half sentinel rows of count 0
+        dead = rng.random(N) < 0.9
+        rows[dead, :n_keys] = 0xFFFFFFFF
+        rows[dead, -1] = 0
+    A, B = rows[:h], rows[h:]
+    A = A[np.lexsort([A[:, i] for i in reversed(range(n_keys))])]
+    B = B[np.lexsort([B[:, i] for i in reversed(range(n_keys))])][::-1]
+    return np.ascontiguousarray(np.concatenate([A, B], 0)), n_keys
+
+
+@pytest.mark.parametrize("case", ["a_below_b", "b_below_a", "runs", "equal", "sentinel",
+                                  "smallest", "15+1"])
+@pytest.mark.parametrize("tile", [64, 256])
+def test_merge_path_twin_edge_cases(case, tile):
+    """Tiles wholly from A or wholly from B, runs of one half longer than a
+    tile, all-equal keys, halves 90% sentinel, the smallest legal N = 2 ×
+    1024, 15 keys + 1 value: keys equal to the sorted keys, rows the same
+    multiset, and the plain network agrees."""
+    rows, n_keys = _edge_rows(case)
+    cols = tuple(torch.from_numpy(rows[:, i].view(np.int32).copy()) for i in range(rows.shape[1]))
+    got = cuda_bitonic_merge.merge_path_twin(cols, n_keys, tile=tile)
+    got = np.stack([g.numpy().view(np.uint32) for g in got], 1)
+    want = _sorted_rows(rows)
+    np.testing.assert_array_equal(got[:, :n_keys], want[:, :n_keys])
+    np.testing.assert_array_equal(_sorted_rows(got), want)
+    ref = cuda_bitonic_merge.bitonic_merge_reference(cols, n_keys, 1024)
+    np.testing.assert_array_equal(np.stack([r.numpy().view(np.uint32) for r in ref], 1)[:, :n_keys],
+                                  got[:, :n_keys])
+
+
+@pytest.mark.parametrize("lanes,N,tile", [(1, 1 << 27, 4096), (2, 1 << 27, 2048),
+                                          (3, 1 << 27, 2048), (4, 1 << 27, 1024),
+                                          (16, 1 << 16, 256), (3, 2048, 2048),
+                                          (100, 1 << 20, 512)])
+def test_merge_tile_fits_shared_memory(lanes, N, tile):
+    """Six merge CTAs an SM where a 256-row tile fits in 32 KB, else one
+    in 227 KB; never more rows than N."""
+    assert cuda_bitonic_merge.merge_tile(lanes, N) == tile
+    assert (lanes + 1) * 4 * tile <= cuda_bitonic_merge.SMEM_BYTES
+    if lanes < 32:
+        assert (lanes + 1) * 4 * tile <= cuda_bitonic_merge.TILE_BYTES
+    with pytest.raises(ValueError):
+        cuda_bitonic_merge.merge_tile(300, N)
+
+
+def test_merge_into_needs_the_card():
+    """The out-of-place kernel entry has no plain route: a CPU tensor
+    raises (``bitonic_merge`` and ``bitonic_merge_`` take the plain network
+    there)."""
+    src = torch.zeros((3, 2048), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        cuda_bitonic_merge.merge_into(src, torch.empty_like(src),
+                                      torch.empty(2, dtype=torch.int64), 2)
+
+
+def test_transpose_swizzle_is_a_bijection():
+    r, q = np.meshgrid(np.arange(cuda_probe.TILE), np.arange(cuda_probe.TILE_CHUNKS),
+                       indexing="ij")
+    s = cuda_probe.swizzle(r, q)
+    assert sorted(s.ravel().tolist()) == list(range(cuda_probe.TILE * cuda_probe.TILE_CHUNKS))
+    # a row keeps its own 32 chunks: the swizzle permutes within the row
+    np.testing.assert_array_equal(s // cuda_probe.TILE_CHUNKS, r)
+
+
+@pytest.mark.parametrize("access", ["load", "T_read", "T_write", "S_read"])
+def test_transpose_accesses_hit_distinct_banks(access):
+    """Every 16-byte warp access of the transpose takes the least 4 shared
+    phases (each quarter warp on 8 different bank groups); without the
+    swizzle the accesses down a column of blocks would take 32."""
+    rows, chunks = cuda_probe.transpose_accesses()[access]
+    assert rows.shape == chunks.shape == (128, 32)
+    assert (cuda_probe.bank_phases(rows, chunks) == 4).all()
+    plain = cuda_probe.bank_phases(rows, chunks, layout=lambda r, q: r * 32 + q)
+    assert plain.max() == (32 if access in ("T_read", "S_read") else 4)
+
+
+def test_transpose_accesses_cover_each_tile_chunk_once():
+    """The load, T's reads and writes, and S's reads each touch every
+    16-byte chunk of a tile exactly once."""
+    for rows, chunks in cuda_probe.transpose_accesses().values():
+        idx = cuda_probe.swizzle(rows, chunks).ravel()
+        assert sorted(idx.tolist()) == list(range(cuda_probe.TILE * cuda_probe.TILE_CHUNKS))
+
+
+def test_transpose_twin_matches_pallas():
+    """The kernel's schedule on each tile against the Pallas tr_kernel in
+    interpret mode: bit-equal, 0xFFFFFFFF wrapping to 0."""
+    rng = np.random.default_rng(9)
+    a = rng.integers(0, 1 << 32, size=(256, 128), dtype=np.uint32)
+    b = rng.integers(0, 1 << 32, size=(256, 128), dtype=np.uint32)
+    a[3, :7] = b[200, 100] = 0xFFFFFFFF
+    want = _pallas_pass(_tr_kernel, a, b, 2, (128, 128))
+    for x, w in zip((a, b), want):
+        got = np.concatenate([cuda_probe.transpose_twin(x[t * 128:(t + 1) * 128])
+                              for t in range(2)])
+        np.testing.assert_array_equal(got, w)
+
+
+def test_pass_wrappers_on_cpu_take_the_plain_version():
+    """A CPU tensor takes ``pass_reference`` and moves no launch count."""
+    a = torch.arange(1 << 14, dtype=torch.int32).view(-1, 128)
+    before = cuda_probe.COPY_LAUNCHES, cuda_probe.TRANSPOSE_LAUNCHES
+    for fn in (cuda_probe.copy_pass, cuda_probe.transpose_pass):
+        for g in fn(a, a):
+            assert torch.equal(g, a + 1)
+    assert (cuda_probe.COPY_LAUNCHES, cuda_probe.TRANSPOSE_LAUNCHES) == before
