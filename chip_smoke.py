@@ -14,12 +14,18 @@ process exits non-zero:
    power limit;
 2. build: compiles the kernels with nvcc and prints the seconds taken and
    ptxas's registers and spill bytes for each kernel; the redesigned
-   kernels (full-mode extract, cluster block sort, the merge path's
-   partition and merge, the pass probes) must spill nothing;
-3. kernel vs plain: the extract kernel against its plain torch version on
-   the card (``torch.equal``) for every listed (k, m), at [512, 4096] and a
-   ragged [3, k+5], and at phase 5's [4096, 4096] for k=28, where both are
-   timed with CUDA events;
+   kernels (count- and full-mode extract, cluster block sort, the merge
+   path's partition and merge, the pass probes) must spill nothing;
+3. kernel vs plain: the count-mode extract kernel against its plain torch
+   version on the card (``torch.equal``) for every listed (k, m), at
+   [512, 4096] and a ragged [3, k+5]; at the edge shapes P = 2048 and
+   4097 (k = 28: 2048 starts a block), P = 1024 and three full blocks with
+   a long halo (1024 starts a block), k = 4, k = 256 with rows of k bases,
+   the flag lane at k = 32 and 64, a block that opts in to more than 48 KB
+   of shared memory (k = 3001), the largest staged k and the wrapper's
+   largest k (the byte route), with Ns on the block boundaries;
+   and at phase 5's [4096, 4096] for k in {28, 31, 32 (flag lane), 55, 97,
+   155}, where both are timed with CUDA events beside the byte bound;
 3b. full-mode kernel vs plain: ``extract_full`` against ``extract.extract``
    on the card for the same (k, m) and shapes: ``valid`` equal, words, sigs
    and bins equal where valid, bins in [0, B) everywhere; the same at the
@@ -122,6 +128,7 @@ READ_LEN = 150
 BASE_CODE = np.full(256, 4, np.uint8)  # ASCII -> 2-bit code, 4 = not ACGT
 BASE_CODE[np.frombuffer(b"ACGT", np.uint8)] = np.arange(4, dtype=np.uint8)
 SORT_BLOCK = 1 << 15  # the merges' compaction block (pipeline._acc_merge)
+COUNT_TIMED = [(28, False), (31, False), (32, True), (55, False), (97, False), (155, False)]
 
 
 def check(cond: bool, msg: str) -> None:
@@ -136,6 +143,20 @@ def log(msg: str) -> None:
 def random_codes(rng, R: int, L: int, invalid: float = 0.01) -> np.ndarray:
     codes = rng.integers(0, 4, size=(R, L), dtype=np.uint8)
     codes[rng.random((R, L)) < invalid] = 4
+    return codes
+
+
+def count_edge_codes(rng, k: int, R: int, L: int) -> np.ndarray:
+    """Codes for a count-kernel edge shape: an all-T row, a row of exactly
+    k bases, Ns on the 1024- and 2048-start block boundaries; past k = 256
+    (where a window almost always holds an N at 1%) one N in row 2 only."""
+    codes = random_codes(rng, R, L, 0.01 if k <= 256 else 0.0)
+    codes[0] = 3
+    codes[1, k:] = 4
+    if k > 256:
+        codes[2, L // 2] = 4
+    codes[R - 1, 1023:1025] = 4
+    codes[R - 1, 2047:2049] = 4
     return codes
 
 
@@ -373,8 +394,9 @@ def main() -> int:
                 ptxas_kernels(cudabuild.ptxas_report(lib, srcs)).items()):
             log(f"[build] ptxas {fn}: {regs} registers, {spill} spill bytes, "
                 f"{stack} bytes stack frame")
-            check(spill == 0 or not re.search("extract_full|cluster_sort|merge_partition|"
-                                              "merge_tile|copy_pass|transpose_pass", fn),
+            check(spill == 0 or not re.search("extract_count|extract_full|cluster_sort|"
+                                              "merge_partition|merge_tile|copy_pass|"
+                                              "transpose_pass", fn),
                   f"{fn} spills {spill} bytes")
 
     # --- 3. kernel vs plain on the card ------------------------------------
@@ -392,16 +414,40 @@ def main() -> int:
                 max_err = max(max_err, err)
                 check(torch.equal(g, r), f"kernel != plain at k={k} m={m} [{R}, {L}]")
         log(f"[kernel] k={k} m={m} flag={flag}: equal to plain at [512, 4096] and [3, {k + 5}]")
+    rng3a = np.random.default_rng(31)  # its own stream: phases 4-6 keep their data
+    st = cuda_extract._MAX_K_STAGED
+    for k, R, L in ((28, 5, 2048 + 27), (28, 5, 4096 + 28), (97, 5, 3 * 1024 + 96),
+                    (55, 5, 1024 + 54), (4, 64, 1024), (256, 8, 256), (32, 5, 2048 + 32),
+                    (64, 5, 1024 + 63), (3001, 5, 3001 + 2100), (st, 3, st + 1500),
+                    (cuda_extract._MAX_K, 3, cuda_extract._MAX_K + 300)):
+        codes = torch.from_numpy(count_edge_codes(rng3a, k, R, L)).to(dev)
+        flag = k % 16 == 0
+        got = cuda_extract.extract_sentinel(codes, k, 4, 2048, flag_lane=flag)
+        torch.cuda.synchronize()
+        ref = cuda_extract.extract_sentinel_reference(codes, k, 4, 2048, flag_lane=flag)
+        check(len(got) == len(ref), f"edge k={k}: {len(got)} columns, plain has {len(ref)}")
+        for g, r in zip(got, ref):
+            max_err = max(max_err, int((g.to(torch.int64) - r.to(torch.int64)).abs().max()))
+            check(torch.equal(g, r), f"kernel != plain at edge k={k} [{R}, {L}]")
+        log(f"[kernel] edge k={k} [{R}, {L}] ({cuda_extract.count_route(k)} route): equal")
     big = torch.from_numpy(random_codes(rng, 4096, 4096)).to(dev)  # phase 5's batch shape
-    for g, r in zip(cuda_extract.extract_sentinel(big, 28, 10, 2048),
-                    cuda_extract.extract_sentinel_reference(big, 28, 10, 2048)):
-        check(torch.equal(g, r), "kernel != plain at k=28 [4096, 4096]")
-    kernel_ms = time_ms(lambda: cuda_extract.extract_sentinel(big, 28, 10, 2048), 50)
-    plain_ms = time_ms(lambda: cuda_extract.extract_sentinel_reference(big, 28, 10, 2048), 10)
+    count_times = {}
+    for k, flag in COUNT_TIMED:
+        for g, r in zip(cuda_extract.extract_sentinel(big, k, 10, 2048, flag_lane=flag),
+                        cuda_extract.extract_sentinel_reference(big, k, 10, 2048, flag_lane=flag)):
+            check(torch.equal(g, r), f"kernel != plain at k={k} [4096, 4096]")
+        ms = time_ms(lambda: cuda_extract.extract_sentinel(big, k, 10, 2048, flag_lane=flag), 50)
+        pms = time_ms(lambda: cuda_extract.extract_sentinel_reference(big, k, 10, 2048,
+                                                                       flag_lane=flag), 5)
+        # 1 B in, 4·(W + flag) B out per position
+        nbytes = 4096 * 4096 + 4 * (-(-k // 16) + flag) * 4096 * (4096 - k + 1)
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        count_times[k] = (ms, pms, bound)
+        log(f"[kernel] [4096, 4096] k={k}{' flag' if flag else ''}: kernel {ms:.4f} ms "
+            f"({nbytes / ms / 1e6:.1f} GB/s), plain {pms:.4f} ms, bound {bound:.4f} ms "
+            f"({bound / ms:.1%})")
     del big
-    gbytes = 4096 * 4096 * (1 + 8) / 1e9  # 1 B in, 2 words of 4 B out per position
-    log(f"[kernel] [4096, 4096] k=28: kernel {kernel_ms:.4f} ms "
-        f"({gbytes / kernel_ms * 1e3:.1f} GB/s), plain {plain_ms:.4f} ms")
+    kernel_ms, plain_ms, count_bound_ms = count_times[28]
 
     # --- 3b. full-mode kernel vs plain on the card ---------------------------
     rng3b = np.random.default_rng(3)  # its own stream: phases 4-6 keep their data
@@ -859,7 +905,7 @@ def main() -> int:
     kernels = [
         ("extract_count", "fastkmer_tpu/ops/pallas_extract.py:262 (extract_pallas_sentinel, "
          '_mk_kernel mode="count")', launches, max_err, kernel_ms, plain_ms,
-         (4096 * 4096 + 2 * 4 * rp) / HBM_BYTES_PER_S * 1e3, None, "extract.cu"),
+         count_bound_ms, None, "extract.cu"),
         ("extract_full", 'fastkmer_tpu/ops/pallas_extract.py:215 (extract_pallas, _mk_kernel '
          'mode="full")', stream_full, full_err, full_ms, full_plain_ms,
          (4096 * 4096 + (4 * 4 + 1) * rp) / HBM_BYTES_PER_S * 1e3, None, "extract.cu"),

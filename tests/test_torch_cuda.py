@@ -5,11 +5,13 @@ where valid for full mode's words and sigs; keys bit-equal and row
 multisets equal per block for the sort), and the count job and 2-shard
 mesh jobs (per batch and streaming, with and without the block-sort
 compaction) on cuda against the same jobs on the CPU; edge shapes of
-both redesigned kernels (k = m + 1, k = 256, rows of k bases, a row ending
-on a block of starts; all-equal and mostly-sentinel sort blocks, 13 keys, and
-the tiled route); the probes' kernels D (the merge path, in place and out
-of place: keys bit-equal to the plain version and to the sorted keys, rows
-the same multiset, also where tiles come wholly from one half) and E (the
+the redesigned kernels (k = m + 1, k = 4, k = 256, rows of k bases, a row
+ending on a block of starts, the count kernel's flag lane, its opt-in
+shared memory and its byte route at the wrapper's largest k; all-equal
+and mostly-sentinel sort blocks, 13 keys, and the tiled route); the
+probes' kernels D (the merge path, in place and out of place: keys
+bit-equal to the plain version and to the sorted keys, rows the same
+multiset, also where tiles come wholly from one half) and E (the
 copy and the transpose: bit-equal, 0xFFFFFFFF wrapping to 0, a tile
 count uneven among the persistent CTAs).  No jax is needed, so a machine with a
 card and no jax runs them without the jax-importing conftest:
@@ -80,6 +82,40 @@ def _write_fasta(path: str, seed: int) -> None:
             if i % 3 == 0:
                 read = rng.integers(0, 5, int(rng.integers(20, 300)))
             f.write(f">r{i}\n" + "".join("ACGTN"[c] for c in read) + "\n")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,R,L,route", [
+    (28, 5, 2048 + 27, "staged"),      # P = 2048: one full block of starts a row
+    (28, 5, 4096 + 28, "staged"),      # P = 4097: one start past two blocks
+    (97, 5, 3 * 1024 + 96, "staged"),  # three full blocks of 1024, a long halo
+    (55, 5, 1024 + 54, "staged"),      # P = 1024
+    (4, 64, 1024, "staged"),
+    (256, 8, 256, "staged"),           # rows of exactly k, with the flag lane
+    (32, 5, 2048 + 32, "staged"),      # the flag lane
+    (64, 5, 1024 + 63, "staged"),
+    (3001, 5, 3001 + 2100, "staged"),  # over 48 KB of shared memory: opts in
+    (cuda_extract._MAX_K_STAGED, 3, cuda_extract._MAX_K_STAGED + 1500, "staged"),
+    (cuda_extract._MAX_K, 3, cuda_extract._MAX_K + 300, "bytes"),  # the wrapper's largest k
+])
+def test_count_kernel_edge_shapes(cuda, k, R, L, route):
+    assert cuda_extract.count_route(k) == route
+    codes = _codes(k * 7 + R, R, L, k)
+    if k > 256:  # windows that long hold an N almost always: one N in row 2 only
+        codes[1:][codes[1:] == 4] = 1
+        codes[2, L // 2] = 4
+    codes[3:4, 1023:1025] = 4  # Ns on a 1024-start block boundary
+    codes[4:5, 2047:2049] = 4  # and on a 2048-start one
+    codes = torch.from_numpy(codes).to(cuda)
+    flag = k % 16 == 0
+    before = cuda_extract.LAUNCHES
+    got = cuda_extract.extract_sentinel(codes, k, 4, 64, flag_lane=flag)
+    torch.cuda.synchronize()
+    assert cuda_extract.LAUNCHES == before + 1
+    ref = cuda_extract.extract_sentinel_reference(codes, k, 4, 64, flag_lane=flag)
+    assert len(got) == len(ref) == -(-k // 16) + int(flag)
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
 
 
 @pytest.mark.cuda

@@ -1,11 +1,19 @@
-"""The designs of the block sort (kernel C) and the full-mode extract
-(kernel B) of fastkmer_tpu_torch, checked on the CPU.  Neither kernel runs
-here; their index arithmetic does.
+"""The designs of the block sort (kernel C) and the staged extract kernels
+(count mode A, full mode B) of fastkmer_tpu_torch, checked on the CPU.  No
+kernel runs here; their index arithmetic does.
 
-* ``cuda_extract.extract_full_twin`` (staged 16-mers, prefix counts of
-  invalid codes, the van Herk window minimum, tiles with their halo, at a
-  small tile) against ``fastkmer_tpu.ops.extract.extract`` and the Pallas
-  full-mode kernel ``extract_pallas(interpret=True)``: ``valid`` equal
+* ``cuda_extract.extract_count_twin`` (the staged count-mode kernel: codes
+  with their halo, 16-mers packed at every position, prefix counts of
+  invalid codes, the O(W) word pick, at a small tile) against the Pallas
+  count-mode kernel ``extract_pallas_sentinel(interpret=True)`` for
+  k % 16 != 0, against ``pipeline._batch_extract_keys_flagged`` with the
+  flag lane for k % 16 == 0, and against the jnp route
+  ``pipeline._batch_extract_keys`` past the Pallas kernel's k <= 256;
+  bit-equality.  ``count_route`` sends to the byte route exactly the k
+  whose staged block would not fit.
+* ``cuda_extract.extract_full_twin`` (the same staged tile, the van Herk
+  window minimum, at a small tile) against
+  ``fastkmer_tpu.ops.extract.extract`` and the Pallas full-mode kernel ``extract_pallas(interpret=True)``: ``valid`` equal
   everywhere, words, sigs and bins equal where valid, bins in [0, B).
   Integer outputs, so the tolerance is bit-equality.
 * The bitonic network in numpy, stage by stage as ``cuda_sort.stage_plan``
@@ -24,6 +32,7 @@ torch = pytest.importorskip("torch")
 jnp = pytest.importorskip("jax.numpy")
 import jax  # noqa: E402
 
+from fastkmer_tpu import pipeline as jpipe  # noqa: E402
 from fastkmer_tpu.ops import extract as jex  # noqa: E402
 from fastkmer_tpu.ops import pallas_extract as pex  # noqa: E402
 from fastkmer_tpu_torch.ops import cuda_extract, cuda_sort  # noqa: E402
@@ -74,6 +83,51 @@ def test_extract_twin_matches_jax_and_pallas(k, m):
 @pytest.mark.parametrize("k,m", [(28, 10), (155, 14)])
 def test_extract_twin_rows_of_exactly_k(k, m):
     _check_twin(_codes(k + 1, 4, k, k), k, m)
+
+
+# --- kernel A: the staged count-mode twin -------------------------------------
+
+
+def _check_count_twin(codes: np.ndarray, k: int) -> None:
+    """The twin at TILE starts a block against the JAX package's count-mode
+    keys: the Pallas kernel in interpret mode (k % 16 != 0, k <= 256), the
+    flagged jnp keys (k % 16 == 0), the jnp route past k = 256."""
+    c = jnp.asarray(codes)
+    if k % 16 == 0:
+        want = jpipe._batch_extract_keys_flagged(c, k, 9, 97)
+    elif k <= 256:
+        want = pex.extract_pallas_sentinel(c, k, 4, 97, block_rows=codes.shape[0],
+                                           interpret=True)
+    else:
+        want = jpipe._batch_extract_keys(c, k, 14, 97, use_pallas=False)
+    got = cuda_extract.extract_count_twin(torch.from_numpy(codes), k, flag_lane=k % 16 == 0,
+                                          tile=TILE)
+    assert len(got) == len(want) == -(-k // 16) + (k % 16 == 0)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.int32 and g.shape == (codes.shape[0] * (codes.shape[1] - k + 1),)
+        np.testing.assert_array_equal(g.numpy().view(np.uint32), np.asarray(w))
+
+
+@pytest.mark.parametrize("k", [5, 13, 17, 28, 33, 55, 155, 255, 16, 32, 64, 256, 301])
+def test_count_twin_matches_jax(k):
+    _check_count_twin(_codes(k + 2, 3, k + 3 * TILE + 5, k), k)
+
+
+@pytest.mark.parametrize("k", [28, 155])
+def test_count_twin_rows_of_exactly_k(k):
+    _check_count_twin(_codes(k + 3, 4, k, k), k)
+
+
+def test_count_route_by_shared_memory():
+    top = cuda_extract._MAX_K_STAGED
+    size, tile = cuda_extract._staged_bytes, cuda_extract.FULL_TILE
+    assert size(tile, top) <= cuda_sort.SMEM_BYTES < size(tile, top + 1)
+    # the staged launch opts in past 48 KB from k = 2754 on
+    assert size(tile, 2753) <= 48 * 1024 < size(tile, 2754)
+    # k <= 32 takes 2048 starts a block, 27 KB at most
+    assert size(cuda_extract.count_tile(32), 32) <= 48 * 1024
+    assert [cuda_extract.count_route(k) for k in (1, 256, top, top + 1, cuda_extract._MAX_K)] == [
+        "staged", "staged", "staged", "bytes", "bytes"]
 
 
 # --- kernel C: the network as the plan places it ------------------------------
