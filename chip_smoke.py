@@ -6,7 +6,8 @@ Builds the CUDA kernels from ``fastkmer_tpu_torch/csrc`` (one nvcc per
 source, started together) and drives the port's three paths: the
 single-chip sort-engine count job, the per-batch mesh count job with
 super-k-mer transport, and the streaming mesh counter (the default of
-``--mesh N``); then the probe scripts that run kernels D and E
+``--mesh N``); the HT engine on the single device and the mesh; resume,
+repair and traces; then the probe scripts that run kernels D and E
 (``fastkmer_tpu_torch.benchmarks``).  Each phase raises on failure, so the
 process exits non-zero:
 
@@ -57,11 +58,13 @@ process exits non-zero:
    counted on the host, and the table's order;
 5b. phase 5 again with ``FASTKMER_PALLAS_COMPACT=1``: bin files identical
    to phase 5's, and block-sort launches in the accumulator's merges;
-6. the mesh at real size: phase 5's FASTA and arguments through
+6. the per-batch mesh at half depth: the first half of phase 5's reads
+   (8x coverage) with phase 5's arguments, through the single device and
    ``cli.main --mesh 4 --smer-transport`` with ``useCustomPartitioner=1 4``,
    all four shards on one card: phase 5's checks, bin files identical to
-   phase 5's, and at least four full-mode launches per batch plus the
-   pre-pass's;
+   the single device's, and at least four full-mode launches per batch
+   plus the pre-pass's (cut from phase 5's depth to keep the whole run near
+   eight minutes);
 7. the streaming mesh at real size: phase 5's FASTA and arguments through
    ``cli.main --mesh 4`` (streaming) with ``useCustomPartitioner=1 4``:
    phase 5's checks, bin files identical to phase 5's, at least four
@@ -94,14 +97,36 @@ process exits non-zero:
 10. the probes on the card, each with the kernels' counts set to 0 just
    before it: ``split_merge_probe.run(27)`` (its exactness fields must
    hold), ``resume_merge_probe.run()`` and ``cuda_probe.run(24)``; their
-   JSON lines are printed, and each must have launched its kernel.
+   JSON lines are printed, and each must have launched its kernel;
+11. the HT engine (useHT=1) on the single device at phase 5's workload:
+   kernel A once a batch and B never, the manifest, the instance count,
+   ascending files, and bin files equal to phase 5's with each trailing
+   ``EOF`` dropped (a collision would raise); wall time, Gbp/s, spans and
+   peak memory logged; then HT at k=55 (the murmur mix) and k=32 (the
+   flag lane) on phase 4's FASTA, cuda and cpu directories identical;
+12. HT on the per-batch mesh at phase 5's workload (``--mesh 4``,
+   ``useCustomPartitioner=1 4``): bin files equal to phase 11's, at least
+   four kernel B launches a batch and none of A; then
+   ``--smer-transport`` useHT=1 on phase 4's FASTA, cuda == cpu;
+13. durability at phase 5's workload, each run interrupted after batch 10
+   by a batch reader that raises and resumed by a fresh call on the same
+   checkpoint directory (``--checkpoint-interval 4``), which must be empty
+   afterwards: the single device's ``execute_job`` (the accumulator's
+   spills; the directory byte-identical to phase 5's), the streaming mesh
+   (bin files equal to phase 5's), and HT through the per-batch flow with
+   ``--keep-table`` (the directory phase 11's plus table.npz); then one
+   bin of it corrupted and ``repair_output`` restores it byte for byte
+   with no kernel launch; and ``--trace-dir`` on phase 4's FASTA writes a
+   torch.profiler trace.
 
-The script imports only the port (``fastkmer_tpu_torch``), torch and numpy.
+Phases 11-13 run after 7b, on its data; phase 7b's merge-window timing
+and phases 8-10 follow them.  Each new phase logs its seconds.  The script
+imports only the port (``fastkmer_tpu_torch``), torch and numpy.
 
 The line before the last is one JSON object with the five kernels'
-launches (D's: split_merge's and resume_merge's summed), errors, times,
-bounds and shares of the bound (``bound_share`` = bound_ms / ms); the last
-line is ``{"ok": true, "device": {...}}``.
+launches (D's: split_merge's and resume_merge's summed; A's and B's also
+by phase), errors, times, bounds and shares of the bound (``bound_share`` =
+bound_ms / ms); the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -191,16 +216,21 @@ def dir_bytes(d: str) -> dict[str, bytes]:
     return {n: open(os.path.join(d, n), "rb").read() for n in sorted(os.listdir(d))}
 
 
-def read_bin_table(out_dir: str, k: int):
+def read_bin_table(out_dir: str, k: int, eof: bool = True):
     """Parse every bin file: -> (lines, sum of counts, all files strictly
-    ascending).  k <= 32, so a k-mer packs into one uint64 key."""
+    ascending).  Each file ends in ``EOF`` when ``eof`` (the sort engine)
+    and in a newline otherwise (the HT engine).  k <= 32, so a k-mer packs
+    into one uint64 key."""
     n_lines, total, ascending = 0, 0, True
     for name in os.listdir(out_dir):
         if not name.startswith("bin"):
             continue
         data = np.fromfile(os.path.join(out_dir, name), np.uint8)
-        check(data[-3:].tobytes() == b"EOF", f"{name}: no EOF sentinel")
-        data = data[:-3]
+        if eof:
+            check(data[-3:].tobytes() == b"EOF", f"{name}: no EOF sentinel")
+            data = data[:-3]
+        else:
+            check(data[-1] == ord("\n"), f"{name}: does not end in a newline")
         nl = np.flatnonzero(data == ord("\n"))
         starts = np.concatenate([[0], nl[:-1] + 1])
         check(bool((data[starts + k] == ord("\t")).all()), f"{name}: bad line layout")
@@ -233,6 +263,90 @@ def same_bin_files(a: str, b: str) -> bool:
             if fa.read() != fb.read():
                 return False
     return True
+
+
+def same_bins_but_eof(sort_dir: str, ht_dir: str) -> bool:
+    """The HT engine's bin files are the sort engine's with each trailing
+    ``EOF`` dropped (read one pair at a time)."""
+    names = sorted(n for n in os.listdir(sort_dir) if n.startswith("bin"))
+    if names != sorted(n for n in os.listdir(ht_dir) if n.startswith("bin")):
+        return False
+    for n in names:
+        with open(os.path.join(sort_dir, n), "rb") as fs, open(os.path.join(ht_dir, n), "rb") as fh:
+            want = fs.read()
+            if not want.endswith(b"EOF") or fh.read() != want[:-3]:
+                return False
+    return True
+
+
+def manifest_bytes(out_dir: str) -> bytes:
+    with open(os.path.join(out_dir, "manifest.json"), "rb") as f:
+        return f.read()
+
+
+def same_dir_as(out_dir: str, manifest: bytes, names: list, extra: tuple = ()) -> bool:
+    """``out_dir`` holds ``names`` (plus ``extra``) and a manifest of the
+    same bytes as ``manifest``, and every file it lists verifies: the
+    manifest carries each bin's sha256, so the bin files are byte-identical
+    to those it was written with."""
+    from fastkmer_tpu_torch import api
+
+    return (sorted(os.listdir(out_dir)) == sorted(list(names) + list(extra))
+            and manifest_bytes(out_dir) == manifest and api.verify_output(out_dir)["ok"])
+
+
+class Interrupted(Exception):
+    """Raised by ``dying_reader``'s batch reader: the job dies mid-run."""
+
+
+@contextlib.contextmanager
+def dying_reader(call: int, at: int):
+    """Inside the block, the port's batch reader raises Interrupted when its
+    ``call``-th use (0-based: a mesh's pre-pass reads the file first) is
+    about to yield batch ``at``, after ``at`` batches went to the card."""
+    from fastkmer_tpu_torch.ingest import batch as batching
+
+    real = batching.batch_file
+    calls = [0]
+
+    def reader(*args, **kw):
+        c = calls[0]
+        calls[0] += 1
+        for i, item in enumerate(real(*args, **kw)):
+            if c == call and i == at:
+                raise Interrupted(f"batch {at}")
+            yield item
+
+    batching.batch_file = reader
+    try:
+        yield
+    finally:
+        batching.batch_file = real
+
+
+def interrupt_and_resume(run, ck: str, call: int, cursor: int, tag: str) -> tuple:
+    """``run()`` dies after batch 10 (``dying_reader``), leaving a checkpoint
+    at batch ``cursor`` in ``ck``; then a fresh ``run()`` resumes from it.
+    -> (the resumed run's result, its seconds, the interrupted run's
+    seconds).  ``ck`` must be empty afterwards."""
+    from fastkmer_tpu_torch.output import manifest
+
+    t0 = time.perf_counter()
+    try:
+        with dying_reader(call, 10):
+            run()
+    except Interrupted:
+        pass
+    else:
+        raise RuntimeError(f"{tag}: the run was not interrupted")
+    t_die = time.perf_counter() - t0
+    done = manifest.BatchCheckpointer(ck).completed_batches()
+    check(done == cursor, f"{tag}: the checkpoint holds {done} batches, not {cursor}")
+    t0 = time.perf_counter()
+    res = run()
+    t_resume = time.perf_counter() - t0
+    check(os.path.isdir(ck) and not os.listdir(ck), f"{tag}: the checkpoint directory is not empty")
+    return res, t_resume, t_die
 
 
 def ptxas_kernels(report: str) -> dict[str, tuple[int, int, int]]:
@@ -328,8 +442,8 @@ def merge_matches_plain(cbm, count_sort, lanes: tuple, keys: int) -> int:
 
 
 def check_mesh_run(summary: dict, n_bases: int, expect: int, out5: str, tag: str) -> None:
-    """Phase 5's checks on a mesh run of phase 5's workload, and bin files
-    equal to phase 5's."""
+    """Phase 5's checks on a mesh run, and bin files equal to those of the
+    single device's run on the same reads (``out5``)."""
     from fastkmer_tpu_torch import api
 
     out = summary["output_dir"]
@@ -342,7 +456,7 @@ def check_mesh_run(summary: dict, n_bases: int, expect: int, out5: str, tag: str
     check(total == expect, f"{tag}: sum of written counts {total} != {expect}")
     check(n_lines == summary["n_unique"], f"{tag}: written lines != n_unique")
     check(ascending, f"{tag}: a bin file is not strictly ascending")
-    check(same_bin_files(out5, out), f"{tag}: bin files differ from phase 5's")
+    check(same_bin_files(out5, out), f"{tag}: bin files differ from the single device's")
 
 
 def main() -> int:
@@ -362,10 +476,15 @@ def main() -> int:
         from fastkmer_tpu_torch.benchmarks._common import HBM_BYTES_PER_S, rand_i32, time_ms
         from fastkmer_tpu_torch.core.tbits import pair_key
         from fastkmer_tpu_torch.ops import count_sort, cuda_extract, cuda_sort, extract
+        from fastkmer_tpu_torch import pipeline
+        from fastkmer_tpu_torch.config import JobConfig
+        from fastkmer_tpu_torch.output import manifest
+        from fastkmer_tpu_torch.utils.timing import TRACE_FILE
     except ImportError as e:
         print(f"chip_smoke: the repository is not beside this script ({e})", file=sys.stderr)
         return 1
 
+    t_run = time.perf_counter()
     # --- 1. card ---------------------------------------------------------
     smi = subprocess.run(
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -376,6 +495,9 @@ def main() -> int:
         f"device {torch.cuda.get_device_name(0)}")
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(20261016)
+    # phase 4's FASTA and its k = 28 and 32 outputs, kept for phases 11-13
+    keep_dir = tempfile.TemporaryDirectory()
+    keep = keep_dir.name
 
     # --- 2. build --------------------------------------------------------
     t0 = time.perf_counter()
@@ -599,6 +721,8 @@ def main() -> int:
               "stream: the k=28 output directories differ")
         log(f"[stream parity] k=28 {len(stream_out)} runs byte-identical; bin files == single "
             "device at k=28 and k=32")
+        fa4 = shutil.copy(fa, keep)
+        single4 = {k: shutil.copytree(d, os.path.join(keep, f"single{k}")) for k, d in single.items()}
 
     # --- 5. the CLI at real size --------------------------------------------
     with tempfile.TemporaryDirectory() as tmp:
@@ -609,6 +733,11 @@ def main() -> int:
         write_reads_fasta(fa, reads)
         expect = valid_windows(reads, 28)
         n_bases = reads.size
+        # phase 6's input: the first half of the reads (half the depth)
+        fa6 = os.path.join(tmp, "half.fa")
+        write_reads_fasta(fa6, reads[: reads.shape[0] // 2])
+        expect6 = valid_windows(reads[: reads.shape[0] // 2], 28)
+        n_bases6 = reads[: reads.shape[0] // 2].size
         del genome, reads
         log(f"[real] {n_bases} bases in {COVERAGE * GENOME // READ_LEN} reads, "
             f"{expect} valid windows; data made in {time.perf_counter() - t0:.1f} s")
@@ -662,8 +791,13 @@ def main() -> int:
             f"{cuda_sort.LAUNCHES} block-sort launches; bin files == phase 5's")
         shutil.rmtree(s5b["output_dir"])
 
-        # --- 6. the mesh at real size: 4 shards, all on this card -------------
-        argv6 = ["28", "10", "3", "2048", "0", "0", fa, tmp + "/", "mesh_", "1", "0", "1", "4",
+        # --- 6. the per-batch mesh at half depth: 4 shards, all on this card,
+        # held against the single device on the same half of the reads ------
+        half = [a if a != fa else fa6 for a in argv]
+        check(cli.main([a if a != "real_" else "half_" for a in half]) == 0, "6: single device")
+        s6s = json.load(open(stats))
+        out6s = s6s["output_dir"]
+        argv6 = ["28", "10", "3", "2048", "0", "0", fa6, tmp + "/", "mesh_", "1", "0", "1", "4",
                  "--mesh", "4", "--smer-transport", "--device", "cuda",
                  "--reads-per-batch", "4096", "--read-len", "4096",
                  "--unique-ub", str(GENOME), "--stats-json", stats]
@@ -682,16 +816,19 @@ def main() -> int:
         out6 = s6["output_dir"]
         nb6 = s6["n_batches"]
         check(s6["placement"] == ["cuda:0"] * 4, f"placement {s6['placement']}")
-        check(nb6 == n_batches, f"mesh made {nb6} batches, the single device {n_batches}")
-        prepass = 4 * -(-nb6 // 100)  # 1-in-100 sampling (sample_fraction 0.01)
-        check(full_launches >= 4 * nb6 + prepass,
+        check(nb6 == s6s["n_batches"], f"mesh made {nb6} batches, the single device "
+                                       f"{s6s['n_batches']}")
+        prepass = 4 * -(-n_batches // 100)  # 1-in-100 sampling (sample_fraction 0.01)
+        check(full_launches >= 4 * nb6 + 4 * -(-nb6 // 100),
               f"{full_launches} full-mode launches for {nb6} batches on 4 shards")
-        check_mesh_run(s6, n_bases, expect, out5, "mesh")
+        check_mesh_run(s6, n_bases6, expect6, out6s, "mesh")
+        shutil.rmtree(out6s)
         count6 = wall6 - s6["timings"].get("write_output", 0.0)
-        log(f"[mesh real] {s6['n_unique']} distinct, {expect} instances, {nb6} batches, "
-            f"{full_launches} full-mode launches; bin files == phase 5's")
-        log(f"[mesh real] end to end {wall6:.2f} s = {n_bases / wall6 / 1e9:.4f} Gbp/s; "
-            f"without write_output {n_bases / count6 / 1e9:.4f} Gbp/s (4 shards on one card)")
+        log(f"[mesh real] half depth ({n_bases6} bases): {s6['n_unique']} distinct, {expect6} "
+            f"instances, {nb6} batches, {full_launches} full-mode launches; bin files == the "
+            f"single device's on the same reads ({s6s['n_unique']} distinct)")
+        log(f"[mesh real] end to end {wall6:.2f} s = {n_bases6 / wall6 / 1e9:.4f} Gbp/s; "
+            f"without write_output {n_bases6 / count6 / 1e9:.4f} Gbp/s (4 shards on one card)")
         log(f"[mesh real] stage timings: {json.dumps(s6['timings'])}")
         log(f"[mesh real] exchange_bytes {s6['exchange_bytes']}, final cap "
             f"{s6['exchange_cap']}, retries {s6['exchange_retries']}, "
@@ -742,6 +879,171 @@ def main() -> int:
                 f"{s7['n_dedup_batches']}, cap {s7['exchange_cap']}, retries "
                 f"{s7['exchange_retries']}, balance {json.dumps(s7['balance'])}")
             log(f"[stream {phase}] peak device memory {peak7 / 2**30:.2f} GiB")
+
+        # --- 11. single-device HT at phase 5's workload ------------------------
+        t11 = time.perf_counter()
+        stats = os.path.join(tmp, "stats.json")
+        argv11 = ["28", "10", "3", "2048", "1", "0", fa, tmp + "/", "ht_", "1", "0", "0",
+                  "--device", "cuda", "--reads-per-batch", "4096", "--read-len", "4096",
+                  "--stats-json", stats]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        cuda_extract.LAUNCHES = cuda_extract.FULL_LAUNCHES = 0
+        t0 = time.perf_counter()
+        rc = cli.main(argv11)  # a fingerprint collision would raise here
+        wall11 = time.perf_counter() - t0
+        ht_launches = cuda_extract.LAUNCHES
+        peak11 = torch.cuda.max_memory_allocated()
+        check(rc == 0, f"11: cli.main returned {rc}")
+        check(cuda_extract.FULL_LAUNCHES == 0, "11: the single-device HT path launched kernel B")
+        s11 = json.load(open(stats))
+        out11 = s11["output_dir"]
+        check(s11["engine"] == "hash" and s11["n_batches"] == n_batches,
+              f"11: engine {s11['engine']}, {s11['n_batches']} batches, phase 5 {n_batches}")
+        check(ht_launches == n_batches, f"11: {ht_launches} kernel A launches for {n_batches} batches")
+        check(api.verify_output(out11)["ok"], "11: manifest verify failed")
+        n_lines, total, ascending = read_bin_table(out11, 28, eof=False)
+        check(s11["n_instances"] == expect == total,
+              f"11: n_instances {s11['n_instances']}, written {total}, valid windows {expect}")
+        check(n_lines == s11["n_unique"] == summary["n_unique"], "11: written lines != n_unique")
+        check(ascending, "11: a bin file is not strictly ascending")
+        check(same_bins_but_eof(out5, out11), "11: bin files differ from phase 5's but for EOF")
+        count11 = wall11 - s11["timings"].get("write_output", 0.0)
+        log(f"[ht 11] {s11['n_unique']} distinct, {n_batches} batches, {ht_launches} kernel A "
+            f"launches, no collision; bin files == phase 5's without EOF")
+        log(f"[ht 11] end to end {wall11:.2f} s = {n_bases / wall11 / 1e9:.4f} Gbp/s; without "
+            f"write_output {n_bases / count11 / 1e9:.4f} Gbp/s (phase 5, sort engine: "
+            f"{wall:.2f} s)")
+        log(f"[ht 11] stage timings: {json.dumps(s11['timings'])}")
+        log(f"[ht 11] peak device memory {peak11 / 2**30:.2f} GiB")
+        for k, m in ((55, 9), (32, 9)):  # the murmur mix (W = 4); the flag lane
+            ht4 = {}
+            for d in ("cuda", "cpu"):
+                argv = [str(k), str(m), "3", "2048", "1", "0", fa4, tmp + "/", "ht4_", "1", "0",
+                        "0", "--device", d, "--reads-per-batch", "256", "--read-len", "4096",
+                        "--stats-json", stats]
+                check(cli.main(argv) == 0, f"11: HT k={k} {d}: cli.main failed")
+                ht4[d] = dir_bytes(json.load(open(stats))["output_dir"])
+            check(ht4["cuda"] == ht4["cpu"], f"11: HT k={k}: cuda and cpu directories differ")
+            if k in single4:
+                check(same_bins_but_eof(single4[k], json.load(open(stats))["output_dir"]),
+                      f"11: HT k={k}: bin files differ from phase 4's but for EOF")
+            log(f"[ht 11] phase 4's FASTA, k={k}: {len(ht4['cuda'])} files cuda == cpu")
+        log(f"[ht 11] phase 11 {time.perf_counter() - t11:.2f} s")
+
+        # --- 12. HT on the per-batch mesh -----------------------------------
+        t12 = time.perf_counter()
+        argv12 = ["28", "10", "3", "2048", "1", "0", fa, tmp + "/", "meshht_", "1", "0", "1", "4",
+                  "--mesh", "4", "--device", "cuda", "--reads-per-batch", "4096",
+                  "--read-len", "4096", "--unique-ub", str(GENOME), "--stats-json", stats]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        cuda_extract.LAUNCHES = cuda_extract.FULL_LAUNCHES = 0
+        t0 = time.perf_counter()
+        rc = cli.main(argv12)
+        wall12 = time.perf_counter() - t0
+        ht_full = cuda_extract.FULL_LAUNCHES
+        peak12 = torch.cuda.max_memory_allocated()
+        check(rc == 0, f"12: cli.main returned {rc}")
+        check(cuda_extract.LAUNCHES == 0, "12: the mesh HT path launched kernel A")
+        s12 = json.load(open(stats))
+        nb12 = s12["n_batches"]
+        check(s12["engine"] == "hash" and nb12 == n_batches, f"12: {nb12} batches")
+        check(ht_full >= 4 * nb12 + prepass, f"12: {ht_full} kernel B launches for {nb12} "
+                                             "batches on 4 shards")
+        check(api.verify_output(s12["output_dir"])["ok"], "12: manifest verify failed")
+        check(s12["n_instances"] == expect, f"12: n_instances {s12['n_instances']} != {expect}")
+        check(same_bin_files(out11, s12["output_dir"]), "12: bin files differ from phase 11's")
+        shutil.rmtree(s12["output_dir"])
+        count12 = wall12 - s12["timings"].get("write_output", 0.0)
+        log(f"[ht 12] mesh: {s12['n_unique']} distinct, {nb12} batches, {ht_full} kernel B "
+            "launches; bin files == phase 11's")
+        log(f"[ht 12] end to end {wall12:.2f} s = {n_bases / wall12 / 1e9:.4f} Gbp/s; without "
+            f"write_output {n_bases / count12 / 1e9:.4f} Gbp/s (4 shards on one card)")
+        log(f"[ht 12] stage timings: {json.dumps(s12['timings'])}; exchange_bytes "
+            f"{s12['exchange_bytes']}, cap {s12['exchange_cap']}, retries {s12['exchange_retries']}")
+        log(f"[ht 12] peak device memory {peak12 / 2**30:.2f} GiB")
+        smer_ht = {}
+        for d in ("cuda", "cpu"):
+            argv = ["28", "10", "3", "2048", "1", "0", fa4, tmp + "/", "smerht_", "1", "0", "1",
+                    "4", "--mesh", "4", "--smer-transport", "--device", d, "--reads-per-batch",
+                    "256", "--read-len", "4096", "--stats-json", stats]
+            check(cli.main(argv) == 0, f"12: smer HT {d}: cli.main failed")
+            smer_ht[d] = dir_bytes(json.load(open(stats))["output_dir"])
+        check(smer_ht["cuda"] == smer_ht["cpu"], "12: smer HT cuda and cpu directories differ")
+        check(same_bins_but_eof(single4[28], json.load(open(stats))["output_dir"]),
+              "12: smer HT bin files differ from phase 4's but for EOF")
+        log(f"[ht 12] --smer-transport useHT=1 on phase 4's FASTA: {len(smer_ht['cuda'])} files "
+            f"cuda == cpu; phase 12 {time.perf_counter() - t12:.2f} s")
+
+        # --- 13. durability at phase 5's workload --------------------------------
+        t13 = time.perf_counter()
+        ck = os.path.join(tmp, "ckpt")
+        names5, man5 = sorted(os.listdir(out5)), manifest_bytes(out5)
+        names11, man11 = sorted(os.listdir(out11)), manifest_bytes(out11)
+        cfg13 = JobConfig(**json.loads(man5)["config"])  # phase 5's run, as its manifest says
+        res13, t_resume, t_die = interrupt_and_resume(
+            lambda: pipeline.execute_job(cfg13, verbose=False, device="cuda", checkpoint_dir=ck,
+                                         checkpoint_interval=4, unique_ub=GENOME),
+            ck, 0, 8, "13 single")
+        check(same_dir_as(out5, man5, names5), "13: the resumed directory differs from phase 5's")
+        log(f"[durable 13] single device: interrupted after batch 10 in {t_die:.2f} s; resumed "
+            f"from batch 8 in {t_resume:.2f} s, merge (2 persisted spills + the rest) "
+            f"{res13.timings['merge']:.3f} s, checkpoint {res13.timings.get('checkpoint', 0):.3f} "
+            f"s; directory == phase 5's")
+        argv13 = ["28", "10", "3", "2048", "0", "0", fa, tmp + "/", "stream13_", "1", "0", "1",
+                  "4", "--mesh", "4", "--device", "cuda", "--reads-per-batch", "4096",
+                  "--read-len", "4096", "--unique-ub", str(GENOME), "--stats-json", stats,
+                  "--checkpoint-dir", ck, "--checkpoint-interval", "4"]
+        _, t_resume, t_die = interrupt_and_resume(lambda: cli.main(argv13), ck, 1, 8,
+                                                  "13 stream")
+        s13 = json.load(open(stats))
+        check(s13["n_instances"] == expect and same_bin_files(out5, s13["output_dir"]),
+              "13: the resumed streaming mesh's bin files differ from phase 5's")
+        shutil.rmtree(s13["output_dir"])
+        log(f"[durable 13] streaming mesh: interrupted in {t_die:.2f} s, resumed in "
+            f"{t_resume:.2f} s, merge {s13['timings']['merge']:.3f} s, checkpoint "
+            f"{s13['timings'].get('checkpoint', 0):.3f} s; bin files == phase 5's")
+        argv13 = argv11 + ["--checkpoint-dir", ck, "--checkpoint-interval", "4", "--keep-table"]
+        _, t_resume, t_die = interrupt_and_resume(lambda: cli.main(argv13), ck, 0, 10, "13 HT")
+        s13 = json.load(open(stats))
+        check(same_dir_as(out11, man11, names11, (manifest.TABLE_SIDECAR,)),
+              "13: the resumed HT directory differs from phase 11's")
+        log(f"[durable 13] HT, the per-batch flow: interrupted in {t_die:.2f} s, resumed from "
+            f"batch 10 in {t_resume:.2f} s, merge {s13['timings']['merge']:.3f} s; directory "
+            "== phase 11's + table.npz")
+        victim = os.path.join(out11, sorted(n for n in names11 if n.startswith("bin"))[7])
+        with open(victim, "r+b") as f:
+            head = f.read(40)
+            pos = head.index(b"\t") + 1
+            f.seek(pos)
+            f.write(b"1" if head[pos:pos + 1] != b"1" else b"2")
+        check(not api.verify_output(out11)["ok"], "13: verify missed the corrupted bin")
+        cuda_extract.LAUNCHES = cuda_extract.FULL_LAUNCHES = cuda_sort.LAUNCHES = 0
+        t0 = time.perf_counter()
+        status = pipeline.repair_output(JobConfig(**json.loads(man11)["config"]), verbose=False)
+        t_repair = time.perf_counter() - t0
+        check(status["ok"], f"13: repair failed: {status}")
+        check(cuda_extract.LAUNCHES + cuda_extract.FULL_LAUNCHES + cuda_sort.LAUNCHES == 0,
+              "13: the repair launched a kernel (it recounted)")
+        check(same_dir_as(out11, man11, names11, (manifest.TABLE_SIDECAR,)),
+              "13: the repaired directory differs from phase 11's")
+        log(f"[durable 13] repair from table.npz: {t_repair:.2f} s, 0 kernel launches; "
+            "directory restored byte for byte")
+        trace = os.path.join(tmp, "trace")
+        argv = ["28", "10", "3", "2048", "0", "0", fa4, tmp + "/", "trace_", "1", "0", "0",
+                "--device", "cuda", "--reads-per-batch", "256", "--read-len", "4096",
+                "--trace-dir", trace]
+        t0 = time.perf_counter()
+        check(cli.main(argv) == 0, "13: the traced run failed")
+        t_trace = time.perf_counter() - t0
+        trace_file = os.path.join(trace, TRACE_FILE)
+        check(os.path.getsize(trace_file) > 0, "13: no trace file")
+        events = json.load(open(trace_file)).get("traceEvents", [])
+        kernels = sum(1 for e in events if e.get("cat") == "kernel")
+        log(f"[durable 13] --trace-dir on phase 4's FASTA: {os.path.getsize(trace_file)} bytes, "
+            f"{len(events)} events, {kernels} kernel events, {t_trace:.2f} s")
+        log(f"[durable 13] phase 13 {time.perf_counter() - t13:.2f} s")
 
     # --- 7b timing: one full merge window of phase 7b, fan-in 4 parts of
     # 4 shards x cap rows plus the accumulator (the driver's default acc_cap)
@@ -900,6 +1202,7 @@ def main() -> int:
         f"{resume_launches}; pass launches: copy {copy_launches}, transpose {tr_launches}; "
         f"phase 10 {time.perf_counter() - t10:.2f} s")
 
+    log(f"[smoke] every phase passed in {time.perf_counter() - t_run:.1f} s")
     # bounds: each input byte read once, each output byte written once
     rp = 4096 * (4096 - 28 + 1)
     kernels = [
@@ -920,10 +1223,15 @@ def main() -> int:
          "_mk_cross_kernel + _mk_clean_kernel)", split_launches + resume_launches, merge_err,
          merge_ms, merge_plain_ms, merge_bound_ms, merge_lib_ms, "bitonic_merge.cu"),
     ]
+    # launches on each path that runs a kernel: A on the single device (5,
+    # and 11 under useHT=1), B on the meshes (7 streaming, 12 HT per batch)
+    by_phase = {"extract_count": {"5": launches, "11": ht_launches},
+                "extract_full": {"7": stream_full, "12": ht_full}}
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": f"fastkmer_tpu_torch/csrc/{src}",
         "replaces": replaces, "launches": n, "max_abs_err": err, "ms": ms, "plain_ms": pms,
         "bound_ms": bound, "bound_by": "bytes", "library_ms": lib, "bound_share": bound / ms,
+        **({"launches_by_phase": by_phase[name]} if name in by_phase else {}),
     } for name, replaces, n, err, ms, pms, bound, lib, src in kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

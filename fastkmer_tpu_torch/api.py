@@ -23,6 +23,8 @@ def count_kmers(
     prededup: bool | None = None,
     checkpoint_dir: str | None = None,
     device="cuda",
+    checkpoint_interval: int = 32,
+    keep_table: bool = False,
     **kw,
 ) -> CountResult:
     """Count canonical k-mers in a FASTA/FASTQ file on ``device``.  Writes
@@ -31,8 +33,9 @@ def count_kmers(
     ``unique_ub``: asserted bound on distinct k-mers (e.g. genome length)
     -> sync-free device accumulation, verified at finalize.
     ``prededup``: per-batch pre-dedup for duplication-heavy inputs (None =
-    adaptive probing).  ``checkpoint_dir``: kill-and-resume (not yet ported:
-    raises ``NotImplementedError``)."""
+    adaptive probing).  ``checkpoint_dir``: kill-and-resume, a checkpoint
+    every ``checkpoint_interval`` batches.  ``keep_table``: write the
+    table.npz sidecar for a repair without recount."""
     cfg = JobConfig(
         dataset=dataset,
         output_directory=output_directory or "",
@@ -47,6 +50,7 @@ def count_kmers(
     return execute_job(
         cfg, verbose=False, unique_ub=unique_ub, prededup=prededup,
         checkpoint_dir=checkpoint_dir, device=device,
+        checkpoint_interval=checkpoint_interval, keep_table=keep_table,
     )
 
 
@@ -65,6 +69,8 @@ def count_kmers_distributed(
     checkpoint_dir: str | None = None,
     device="cuda",
     streaming: bool | None = None,
+    checkpoint_interval: int = 32,
+    keep_table: bool = False,
     **kw,
 ):
     """Count canonical k-mers over a mesh of ``n_devices`` shards (the
@@ -75,8 +81,9 @@ def count_kmers_distributed(
     None/True runs the streaming counter (tables stay on the devices across
     batches); ``streaming=False`` the per-batch k-mer transport.
     ``prededup``: the streaming counter's dedup transport (None adaptive).
-    ``use_custom_partitioner``: sampled LPT bin placement.  Returns
-    ``parallel.driver.DistributedResult``."""
+    ``use_custom_partitioner``: sampled LPT bin placement.
+    ``checkpoint_dir``, ``checkpoint_interval`` and ``keep_table`` as in
+    count_kmers.  Returns ``parallel.driver.DistributedResult``."""
     from .parallel import driver, exchange
 
     dev = resolve_device(device)
@@ -98,6 +105,7 @@ def count_kmers_distributed(
     return driver.execute_job_distributed(
         cfg, mesh, verbose=False, unique_ub=unique_ub, prededup=prededup,
         checkpoint_dir=checkpoint_dir, streaming=streaming,
+        checkpoint_interval=checkpoint_interval, keep_table=keep_table,
     )
 
 
@@ -144,3 +152,13 @@ def dump(res: CountResult, k: int, path: str) -> None:
         kmers = bits.decode_words_batch(res.words, k)
         for km, c in zip(kmers, res.counts.tolist()):
             f.write(km + b"\t" + str(int(c)).encode() + b"\n")
+
+
+def load_binary(path: str) -> CountResult:
+    """Load a binary (npz) output written with use_kryo_serializer=1."""
+    with np.load(path) as z:
+        words, counts, bins = z["words"], z["counts"], z["bins"]
+    return CountResult(
+        words=words, counts=counts, bins=bins, n_instances=int(counts.sum()),
+        n_bases=0, n_reads=0, n_batches=0, timings={},
+    )

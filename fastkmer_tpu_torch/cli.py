@@ -11,7 +11,11 @@ Accepts the reference's 13 positional arguments in the same order:
 ``--smer-transport`` the per-batch job with super-k-mer transport;
 ``useCustomPartitioner=1`` places bins by the sampled LPT pre-pass there.
 ``--prededup`` sets the streaming counter's dedup transport, or the single
-device's pre-dedup.  Every flag that is not ported yet raises
+device's pre-dedup.  useHT=1 selects the HT engine (the per-batch path on
+a mesh).  ``--checkpoint-dir`` makes a run resumable, ``--keep-table``
+keeps the table beside the output for a repair without recount, and
+``--trace-dir`` wraps the run in a torch.profiler trace.  ``--multiseq``
+and ``--distance-measure`` are not ported yet and raise
 NotImplementedError instead of being ignored.
 
     python -m fastkmer_tpu_torch.cli 28 10 3 512 0 0 in.fa out/ run_ 1 0 0
@@ -26,6 +30,11 @@ import sys
 
 from .config import JobConfig
 from .pipeline import execute_job, not_ported
+from .utils.timing import maybe_profile
+
+# the summary's note under useHT=1; the card's times are in PERF.md
+HT_NOTE = ("useHT=1 counts by 64-bit fingerprints with the same table as useHT=0; "
+           "its time against useHT=0 on the card is in PERF.md")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -65,25 +74,24 @@ def build_parser() -> argparse.ArgumentParser:
                         "(or --smer-transport's per-batch job); 1 = single device")
     p.add_argument("--smer-transport", action="store_true",
                    help="ship super-k-mer records through the exchange instead of k-mers")
+    p.add_argument("--checkpoint-dir", default=None,
+                   help="enable kill-and-resume: persist partial tables here")
+    p.add_argument("--checkpoint-interval", type=int, default=32,
+                   help="batches between checkpoints")
+    p.add_argument("--keep-table", action="store_true",
+                   help="write a binary table.npz sidecar enabling zero-recount repair")
+    p.add_argument("--trace-dir", default=None,
+                   help="wrap the run in a torch.profiler trace written here")
     # accepted for CLI parity with fastkmer_tpu; each raises until ported
     p.add_argument("--multiseq", action="store_true")
     p.add_argument("--distance-measure", default=None)
-    p.add_argument("--checkpoint-dir", default=None)
-    p.add_argument("--checkpoint-interval", type=int, default=None)
-    p.add_argument("--keep-table", action="store_true")
-    p.add_argument("--trace-dir", default=None)
     return p
 
 
 def _check_ported(args) -> None:
     for flag, given in (
-        ("useHT=1", args.useHT == 1),
         ("--multiseq", args.multiseq),
         ("--distance-measure", args.distance_measure is not None),
-        ("--checkpoint-dir", args.checkpoint_dir is not None),
-        ("--checkpoint-interval", args.checkpoint_interval is not None),
-        ("--keep-table", args.keep_table),
-        ("--trace-dir", args.trace_dir is not None),
     ):
         if given:
             raise not_ported(flag)
@@ -97,6 +105,12 @@ def _check_ported(args) -> None:
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     _check_ported(args)
+    # one profiling hook around the whole job, as in the JAX CLI
+    with maybe_profile(args.trace_dir):
+        return _run(args)
+
+
+def _run(args) -> int:
     cfg = JobConfig(
         dataset=args.input,
         output_directory=args.output,
@@ -112,6 +126,7 @@ def main(argv=None) -> int:
         prefix=args.prefix,
         reads_per_batch=args.reads_per_batch,
         read_len=args.read_len,
+        use_ht=bool(args.useHT),
     )
     prededup = {"auto": None, "on": True, "off": False}[args.prededup]
     if args.mesh > 1:
@@ -121,6 +136,8 @@ def main(argv=None) -> int:
         res = driver.execute_job_distributed(
             cfg, mesh, smer_transport=args.smer_transport,
             unique_ub=args.unique_ub, prededup=prededup,
+            checkpoint_dir=args.checkpoint_dir,
+            checkpoint_interval=args.checkpoint_interval, keep_table=args.keep_table,
         )
         extra = {
             "exchange_bytes": res.exchange_bytes,
@@ -132,12 +149,15 @@ def main(argv=None) -> int:
         }
     else:
         res = execute_job(cfg, unique_ub=args.unique_ub, prededup=prededup,
-                          device=args.device)
+                          device=args.device, checkpoint_dir=args.checkpoint_dir,
+                          checkpoint_interval=args.checkpoint_interval,
+                          keep_table=args.keep_table)
         extra = {}
     summary = {
         "mode": "count",
         "mesh": args.mesh,
-        "engine": "sort",
+        "engine": "hash" if cfg.use_ht else "sort",
+        **({"engine_note": HT_NOTE} if cfg.use_ht else {}),
         "device": args.device,
         "n_instances": res.n_instances,
         "n_unique": int(res.words.shape[0]),

@@ -5,6 +5,13 @@
 the sha256 of every file and a table checksum, so that ``verify_output``
 can check a directory's completeness and content instead of inferring it
 from "all B files appeared".  The JSON is the JAX package's, key for key.
+
+``write_table_sidecar`` keeps the final table beside the bin files, so a
+repair rewrites damaged bins without recounting.  ``BatchCheckpointer``
+persists partial tables with a cursor, so an interrupted job resumes from
+its last checkpoint.  The on-disk formats (``table.npz``, ``cursor.json``,
+``part*.npz``, ``spill*.npz``) are the JAX package's: a checkpoint
+directory one package left behind resumes in the other.
 """
 
 from __future__ import annotations
@@ -12,6 +19,7 @@ from __future__ import annotations
 import hashlib
 import json
 import os
+import zipfile
 
 import numpy as np
 
@@ -102,3 +110,135 @@ def verify_output(out_dir: str) -> dict:
         "extra_missing": extra_missing,
         "extra_mismatched": extra_mismatched,
     }
+
+
+TABLE_SIDECAR = "table.npz"
+
+
+def write_table_sidecar(out_dir: str, words, counts, bins) -> str:
+    """Binary snapshot of the final table next to the bin files, so that
+    repair_output can rewrite damaged bins with zero recounting.  Checked
+    against the manifest checksum when loaded, so a stale or truncated
+    sidecar never repairs with wrong counts."""
+    path = os.path.join(out_dir, TABLE_SIDECAR)
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:  # a file handle: savez would append .npz to a name
+        np.savez(f, words=words, counts=counts, bins=bins)
+    os.replace(tmp, path)  # atomic: never a truncated sidecar
+    return path
+
+
+def load_table_sidecar(out_dir: str):
+    """-> (words, counts, bins) if a sidecar exists AND matches the
+    manifest checksum, else None."""
+    path = os.path.join(out_dir, TABLE_SIDECAR)
+    if not os.path.exists(path):
+        return None
+    try:
+        with open(os.path.join(out_dir, MANIFEST)) as f:
+            manifest = json.load(f)
+        with np.load(path) as z:
+            words, counts, bins = z["words"], z["counts"], z["bins"]
+    except (OSError, ValueError, KeyError, EOFError, zipfile.BadZipFile):
+        return None  # unreadable: the repair recounts instead
+    if table_checksum(words, counts) != manifest.get("checksum"):
+        return None
+    return words, counts, bins
+
+
+class BatchCheckpointer:
+    """Persist partial tables so that a job can resume mid-file.
+
+    Two flows share the cursor file (the cursor is authoritative; part
+    files past it are ignored, so a crash between a part write and the
+    cursor rename is harmless):
+
+    * per batch (``save_batch``): one npz per batch index, for the host
+      path, where every batch's table visits the host anyway;
+    * spills (``save_spills``): the device-accumulator paths checkpoint at
+      merge boundaries by forcing a spill every ``interval`` batches and
+      persisting the new spill parts and the batch cursor.  A resume loads
+      the spills back and skips the covered batches; spilled parts merge by
+      the same weighted group-by as live ones, so the table is exact.
+    """
+
+    def __init__(self, ckpt_dir: str, interval: int = 32):
+        self.dir = ckpt_dir
+        self.interval = interval
+        os.makedirs(ckpt_dir, exist_ok=True)
+        self.cursor_path = os.path.join(ckpt_dir, "cursor.json")
+
+    def _cursor(self) -> dict:
+        if not os.path.exists(self.cursor_path):
+            return {"completed": 0, "spills": 0, "log": []}
+        with open(self.cursor_path) as f:
+            cur = json.load(f)
+        cur.setdefault("spills", 0)
+        cur.setdefault("log", [])
+        return cur
+
+    def _write_cursor(self, cur: dict) -> None:
+        tmp = self.cursor_path + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump(cur, f)
+        os.replace(tmp, self.cursor_path)  # atomic cursor update
+
+    def completed_batches(self) -> int:
+        return self._cursor()["completed"]
+
+    def save_batch(self, index: int, words, counts, bins) -> None:
+        np.savez(
+            os.path.join(self.dir, f"part{index:06d}.npz"),
+            words=words, counts=counts, bins=bins,
+        )
+        self._write_cursor({"completed": index + 1, "spills": 0})
+
+    def save_spills(self, completed: int, parts: list, first_seq: int) -> None:
+        """Persist ``parts`` as spill files ``first_seq..`` and advance the
+        cursor to ``completed`` batches.  The cursor keeps a log of every
+        (completed, spills) pair, so a resume can roll back to an earlier
+        cursor (``rollback_to``)."""
+        for i, (words, counts, bins) in enumerate(parts):
+            np.savez(
+                os.path.join(self.dir, f"spill{first_seq + i:06d}.npz"),
+                words=words, counts=counts, bins=bins,
+            )
+        cur = self._cursor()
+        entry = [completed, first_seq + len(parts)]
+        self._write_cursor(
+            {"completed": entry[0], "spills": entry[1], "log": cur["log"] + [entry]}
+        )
+
+    def rollback_to(self, completed: int) -> int:
+        """Discard checkpoint state past ``completed`` batches: truncate to
+        the newest logged cursor entry with completed <= target (the zero
+        state if none), delete the spill files beyond it, and return the
+        batch count resumed from.  Processes of a multi-host job that crash
+        between each other's cursor writes re-align on the minimum this way."""
+        cur = self._cursor()
+        if cur["completed"] <= completed:
+            return cur["completed"]
+        keep = [e for e in cur["log"] if e[0] <= completed]
+        base = keep[-1] if keep else [0, 0]
+        for i in range(base[1], cur["spills"]):
+            p = os.path.join(self.dir, f"spill{i:06d}.npz")
+            if os.path.exists(p):
+                os.remove(p)
+        self._write_cursor({"completed": base[0], "spills": base[1], "log": keep})
+        return base[0]
+
+    def load_parts(self) -> list:
+        cur = self._cursor()
+        if cur["spills"]:
+            names = [f"spill{i:06d}.npz" for i in range(cur["spills"])]
+        else:
+            names = [f"part{i:06d}.npz" for i in range(cur["completed"])]
+        parts = []
+        for name in names:
+            with np.load(os.path.join(self.dir, name)) as z:
+                parts.append((z["words"], z["counts"], z["bins"]))
+        return parts
+
+    def clear(self) -> None:
+        for f in os.listdir(self.dir):
+            os.remove(os.path.join(self.dir, f))

@@ -5,6 +5,8 @@ Matches the reference's sort-path format (extractKXmers,
 SparkBinKmerCounter.scala:550-606): one file ``<dir>/bin<binId>`` per
 non-empty bin, lines ``<KMER>\\t<count>\\n`` in ascending k-mer order,
 terminated by a literal ``EOF`` sentinel (no trailing newline).  The
+reference's HT path (:711-735) writes no sentinel; the HT engine passes
+``eof_sentinel=False`` for byte-level compatibility.  The
 binary format (npz of packed words + counts) replaces the reference's Kryo
 variant (:557-558, :580, :599-602).
 """
@@ -27,17 +29,21 @@ def write_bin_files(
     counts: np.ndarray,
     bins: np.ndarray,
     k: int,
+    eof_sentinel: bool = True,
+    clean: bool = True,
 ) -> dict[int, str]:
-    """Write unique k-mers grouped per bin, each file ending in ``EOF``.
-    ``words`` rows must be in ascending k-mer order; a stable argsort on
-    bins keeps that order within each bin.  Returns {bin id: sha256 of the
-    file's bytes} for the manifest.
+    """Write unique k-mers grouped per bin, each file ending in ``EOF``
+    when ``eof_sentinel``.  ``words`` rows must be in ascending k-mer order;
+    a stable argsort on bins keeps that order within each bin.  Returns
+    {bin id: sha256 of the file's bytes} for the manifest.
 
-    Stale ``bin*`` files and binary ``counts*.npz`` artifacts of an earlier
-    run into the same directory are removed first: the manifest only checks
-    the artifacts of the new run."""
+    With ``clean`` (the default), stale ``bin*`` files and binary
+    ``counts*.npz`` artifacts of an earlier run into the same directory are
+    removed first: the manifest only checks the artifacts of the new run.
+    Partial rewrites (pipeline.repair_output) pass clean=False."""
     os.makedirs(out_dir, exist_ok=True)
-    _clean_stale_outputs(out_dir)
+    if clean:
+        _clean_stale_outputs(out_dir)
     if words.shape[0] == 0:
         return {}
     order = np.argsort(bins, kind="stable")
@@ -57,8 +63,9 @@ def write_bin_files(
         h = hashlib.sha256(lines)
         with open(os.path.join(out_dir, f"bin{blist[bi]}"), "wb") as f:
             f.write(lines)
-            f.write(b"EOF")
-            h.update(b"EOF")
+            if eof_sentinel:
+                f.write(b"EOF")
+                h.update(b"EOF")
         hashes[bi] = h.hexdigest()
 
     workers = min(8, os.cpu_count() or 1, len(blist))
@@ -99,15 +106,17 @@ def _format_lines(words: np.ndarray, counts: np.ndarray, k: int) -> bytes:
 
 
 def write_binary_with_manifest(out_dir: str, cfg_dict: dict, words, counts,
-                               bins, k: int) -> str:
+                               bins, k: int, extra_files: dict | None = None) -> str:
     """Binary output (enableKryo=1): counts.npz plus a binary-flagged
-    manifest whose extra_files carry the npz hash."""
+    manifest whose extra_files carry the npz hash and any caller extras
+    ({name: sha256} of sibling artifacts, e.g. those a repair keeps)."""
     os.makedirs(out_dir, exist_ok=True)
     _clean_stale_outputs(out_dir)
     path = os.path.join(out_dir, "counts.npz")
     np.savez_compressed(path, words=words, counts=counts, bins=bins, k=np.int32(k))
+    files = dict(extra_files or {})
+    files["counts.npz"] = manifest_mod.file_sha256(path)
     manifest_mod.write_manifest(
-        out_dir, cfg_dict, words, counts, bins,
-        extra_files={"counts.npz": manifest_mod.file_sha256(path)}, binary=True,
+        out_dir, cfg_dict, words, counts, bins, extra_files=files, binary=True,
     )
     return path

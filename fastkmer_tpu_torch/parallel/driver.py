@@ -6,19 +6,21 @@
 
 then one of two paths:
 
-* streaming (the default for k-mer transport): ``stream.DistributedCounter``
-  keeps each shard's table on its device across batches (exchange per
-  batch, fan-in merges, spills past ``acc_cap``) and pulls it once at the
-  end; a zero sequence lane keeps the sentinel unambiguous at k % 16 == 0;
-* per batch (super-k-mer transport, or ``streaming=False``): a step per
-  batch (full-mode extract kernel, route, exchange, owner count;
+* streaming (the default for k-mer transport and the sort engine):
+  ``stream.DistributedCounter`` keeps each shard's table on its device
+  across batches (exchange per batch, fan-in merges, spills past
+  ``acc_cap``) and pulls it once at the end; a zero sequence lane keeps the
+  sentinel unambiguous at k % 16 == 0;
+* per batch (super-k-mer transport, the HT engine, or ``streaming=False``):
+  a step per batch (full-mode extract kernel, route, exchange, owner count;
   resize-and-retry on dropped rows), each shard's unique rows to the host
   (``compact_shard_counts``), per-shard ``merge_partials`` and one lexsort.
 
 Both end in the per-bin text or npz output + manifest of the single-device
-job.  useHT=1, checkpoints, ``keep_table`` and profiler traces raise
-``not_ported``; a forced ``prededup`` off the streaming path raises as it
-does in the JAX package.
+job.  ``checkpoint_dir`` persists the streaming counter's spills, or the
+per-batch path's compacted parts, every ``checkpoint_interval`` batches;
+a forced ``prededup`` off the streaming path raises as it does in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -32,9 +34,10 @@ from ..config import JobConfig
 from ..core.bits import num_words
 from ..ingest import batch as batching
 from ..ingest.prefetch import prefetched
-from ..ops import count_sort
-from ..utils.timing import StageTimer
-from ..pipeline import _span, not_ported
+from ..ops import count_hash, count_sort
+from ..output import manifest as manifest_mod
+from ..utils.timing import StageTimer, maybe_profile
+from ..pipeline import _span
 from . import exchange, partitioner, stream
 
 
@@ -56,23 +59,6 @@ class DistributedResult(NamedTuple):
     # streaming: merge windows replayed at a doubled cap
 
 
-def _check_ported(cfg: JobConfig, streaming: bool, checkpoint_dir, keep_table: bool,
-                  trace_dir, prededup) -> None:
-    if cfg.use_ht:
-        raise not_ported("useHT=1 (the hash-table engine)")
-    if checkpoint_dir is not None:
-        raise not_ported("checkpoint_dir (batch-level resume)")
-    if keep_table:
-        raise not_ported("keep_table (the table.npz sidecar)")
-    if trace_dir is not None:
-        raise not_ported("trace_dir (profiler traces)")
-    if prededup is True and not streaming:
-        raise NotImplementedError(
-            "prededup requires the streaming mesh path (sort engine, k-mer "
-            "transport); the per-batch smer/HT paths have no dedup step"
-        )
-
-
 def execute_job_distributed(
     cfg: JobConfig,
     mesh: exchange.Mesh,
@@ -88,22 +74,45 @@ def execute_job_distributed(
     keep_table: bool = False,
     prededup: bool | None = None,
     trace_dir: str | None = None,
+    checkpoint_interval: int = 32,
 ) -> DistributedResult:
     """Count cfg.dataset over ``mesh`` and (when cfg.write) write the same
     per-bin files, counts.npz and manifest as the single-device job.
 
-    ``streaming`` defaults to True without ``smer_transport`` (as in the
-    JAX package); ``streaming=False`` with k-mer transport runs the
-    per-batch path.  ``acc_cap`` (default: room for two batches of distinct
-    k-mers per shard, a power of two) and ``fanin`` size the streaming
-    counter; ``prededup`` sets its dedup transport (None adaptive).
-    ``unique_ub`` makes the feed sync-free: no per-batch read of the drop
-    counter and no retry; the run's total is checked once at the end and
-    raises if a row was dropped.  ``cap`` fixes the starting
-    per-(source, destination) capacity."""
+    ``streaming`` defaults to True without ``smer_transport`` and without
+    the HT engine (as in the JAX package); ``streaming=False`` with k-mer
+    transport runs the per-batch path.  ``acc_cap`` (default: room for two
+    batches of distinct k-mers per shard, a power of two) and ``fanin``
+    size the streaming counter; ``prededup`` sets its dedup transport (None
+    adaptive).  ``unique_ub`` makes the feed sync-free: no per-batch read
+    of the drop counter and no retry; the run's total is checked once at
+    the end and raises if a row was dropped.  ``cap`` fixes the starting
+    per-(source, destination) capacity.  ``checkpoint_dir`` makes the run
+    resumable (checkpoints every ``checkpoint_interval`` batches, emptied
+    when the run completes), ``keep_table`` writes the table.npz sidecar,
+    ``trace_dir`` wraps the run in a torch.profiler trace."""
+    with maybe_profile(trace_dir):
+        return _execute_job_distributed(
+            cfg, mesh, cap, smer_transport, smax, verbose, streaming, acc_cap, fanin,
+            checkpoint_dir, checkpoint_interval, unique_ub, keep_table, prededup,
+        )
+
+
+def _execute_job_distributed(cfg: JobConfig, mesh: exchange.Mesh, cap: int | None,
+                             smer_transport: bool, smax: int, verbose: bool,
+                             streaming: bool | None, acc_cap: int | None, fanin: int,
+                             checkpoint_dir: str | None, checkpoint_interval: int,
+                             unique_ub: int | None, keep_table: bool,
+                             prededup: bool | None) -> DistributedResult:
     if streaming is None:
+        # the HT engine counts per batch on the received rows; the streaming
+        # deferred accumulator is a sort-engine design
         streaming = not smer_transport and not cfg.use_ht
-    _check_ported(cfg, streaming, checkpoint_dir, keep_table, trace_dir, prededup)
+    if prededup is True and not streaming:
+        raise NotImplementedError(
+            "prededup requires the streaming mesh path (sort engine, k-mer "
+            "transport); the per-batch smer/HT paths have no dedup step"
+        )
     timer = StageTimer()
     n = mesh.size
     devs = mesh.devices
@@ -153,24 +162,46 @@ def execute_job_distributed(
         if smer_transport:
             cap = min(cap + 1, cap_limit)  # records <= k-mers per (src, dst)
 
+    ckpt = (manifest_mod.BatchCheckpointer(checkpoint_dir, checkpoint_interval)
+            if checkpoint_dir else None)
     if streaming:
         return _count_streaming(cfg, mesh, timer, batches, R, positions, cap, acc_cap, fanin,
-                                owner_map, balance, unique_ub, prededup)
+                                owner_map, balance, unique_ub, prededup, ckpt, keep_table)
 
     def build_step(c: int):
         if smer_transport:
-            return exchange.build_distributed_count_smer(mesh, k, m, b, c, smax, owner_map)
-        return exchange.build_distributed_count(mesh, k, m, b, c, owner_map)
+            return exchange.build_distributed_count_smer(mesh, k, m, b, c, smax, owner_map,
+                                                         use_ht=cfg.use_ht)
+        return exchange.build_distributed_count(mesh, k, m, b, c, owner_map,
+                                                use_ht=cfg.use_ht)
 
     def step_bytes(c: int) -> int:
         return exchange.exchange_bytes_per_step(n, c, k, smax if smer_transport else None)
 
     step = build_step(cap)
+    # keyed by shard: ownership is a function of the bin (owner_map[bin]),
+    # so checkpointed parts re-split into the same per-shard merges on
+    # resume (a k-mer merged under two shards would give two output rows)
     per_chip_parts: dict[int, list] = {}
     n_reads = n_bases = xbytes = retries = n_batches = 0
     sync_free = unique_ub is not None
     dropped_total = None  # device scalar under sync_free, read once at the end
-    for codes, nr, nb in prefetched(batches()):
+    collision_total = None  # HT engine: device scalar, read once at the end
+    # every compacted part visits the host anyway, so the parts themselves
+    # are the checkpoint unit (the spill flow of BatchCheckpointer)
+    skip = persisted = 0
+    new_parts: list = []  # parts since the last checkpoint, all shards
+    if ckpt is not None:
+        skip = ckpt.completed_batches()
+        for part in ckpt.load_parts():
+            _split_part_by_owner(part, owner_map, per_chip_parts)
+            persisted += 1
+    for i, (codes, nr, nb) in enumerate(prefetched(batches())):
+        n_batches += 1
+        if i < skip:  # counted before the interruption
+            n_reads += nr
+            n_bases += nb
+            continue
         with _span(timer, "device_step", *devs):
             shards = exchange.shard_batch(mesh, codes)
             sc = step(shards)
@@ -193,15 +224,32 @@ def execute_job_distributed(
                 sc = step(shards)
         if sync_free:
             dropped_total = sc.dropped if dropped_total is None else dropped_total + sc.dropped
+        if cfg.use_ht:
+            collision_total = (sc.collision if collision_total is None
+                               else collision_total + sc.collision)
         xbytes += step_bytes(cap)
         with _span(timer, "host_compact", *devs):
             for c, part in exchange.compact_shard_counts(sc, with_chips=True):
                 per_chip_parts.setdefault(c, []).append(part)
+                if ckpt is not None:
+                    new_parts.append(part)
         del sc, shards
         n_reads += nr
         n_bases += nb
-        n_batches += 1
+        if ckpt is not None and (i + 1) % ckpt.interval == 0:
+            with timer.span("checkpoint"):
+                # a checkpoint claims its batches complete, so the sync-free
+                # drop counter is verified first
+                _check_dropped(dropped_total, cap)
+                dropped_total = None
+                ckpt.save_spills(i + 1, new_parts, persisted)
+                persisted += len(new_parts)
+                new_parts = []
     _check_dropped(dropped_total, cap)
+    if collision_total is not None and int(collision_total):
+        raise count_hash.FingerprintCollision(
+            "64-bit fingerprint collision on the mesh; re-run with useHT=0"
+        )
 
     W = num_words(k)
     with timer.span("merge"):
@@ -224,7 +272,9 @@ def execute_job_distributed(
 
     if cfg.write:
         with timer.span("write_output"):
-            pipeline.write_output(cfg, words, counts, bins)
+            pipeline.write_output(cfg, words, counts, bins, keep_table=keep_table)
+    if ckpt is not None:
+        ckpt.clear()  # the run completed
     return DistributedResult(
         words, counts, bins, int(counts.sum()), n_bases, n_reads,
         owner_map, balance, xbytes, timer.as_dict(),
@@ -235,8 +285,10 @@ def execute_job_distributed(
 def _count_streaming(cfg: JobConfig, mesh: exchange.Mesh, timer: StageTimer, batches,
                      R: int, positions: int, cap: int, acc_cap: int | None, fanin: int,
                      owner_map: np.ndarray, balance: dict, unique_ub: int | None,
-                     prededup: bool | None) -> DistributedResult:
-    """The streaming branch of the JAX driver (driver.py:237-315)."""
+                     prededup: bool | None, ckpt, keep_table: bool) -> DistributedResult:
+    """The streaming branch of the JAX driver (driver.py:237-315).  With a
+    checkpointer, a forced spill every ``ckpt.interval`` batches persists
+    the shards' tables; a resume loads them back and skips their batches."""
     # k % 16 == 0: a constant-zero seq lane keeps the sentinel unambiguous
     flagged = not count_sort.sentinel_safe_for(cfg.k)
     if acc_cap is None:
@@ -247,24 +299,51 @@ def _count_streaming(cfg: JobConfig, mesh: exchange.Mesh, timer: StageTimer, bat
         with_seq=flagged, unique_ub=unique_ub, prededup=prededup,
     )
     zero_sids = np.zeros(R, np.int32) if flagged else None
+    skip = persisted = 0
+    if ckpt is not None:
+        skip = ckpt.completed_batches()
+        ctr.host_spills.extend(ckpt.load_parts())
+        persisted = len(ctr.host_spills)
     n_batches = 0
-    for codes, nr, nb in prefetched(batches()):
+    for i, (codes, nr, nb) in enumerate(prefetched(batches())):
+        n_batches += 1
+        if i < skip:  # counted before the interruption
+            ctr.n_reads += nr
+            ctr.n_bases += nb
+            continue
         with _span(timer, "device_step", *mesh.devices):
             ctr.feed(codes, n_reads=nr, n_bases=nb, seq_ids=zero_sids)
-        n_batches += 1
+        if ckpt is not None and (i + 1) % ckpt.interval == 0:
+            with _span(timer, "checkpoint", *mesh.devices):
+                ctr.spill()
+                ckpt.save_spills(i + 1, ctr.host_spills[persisted:], persisted)
+                persisted = len(ctr.host_spills)
     with _span(timer, "merge", *mesh.devices):
         words, counts, bins = ctr.finalize()
         if flagged:
             words = words[:, : num_words(cfg.k)]  # drop the zero lane
     if cfg.write:
         with timer.span("write_output"):
-            pipeline.write_output(cfg, words, counts, bins)
+            pipeline.write_output(cfg, words, counts, bins, keep_table=keep_table)
+    if ckpt is not None:
+        ckpt.clear()  # the run completed
     return DistributedResult(
         words, counts, bins, int(counts.sum()), ctr.n_bases, ctr.n_reads,
         owner_map, balance, ctr.exchange_bytes, timer.as_dict(),
         n_dedup_batches=ctr.n_dedup_batches, n_batches=n_batches,
         exchange_cap=ctr.cap, exchange_retries=ctr.n_retries,
     )
+
+
+def _split_part_by_owner(part, owner_map: np.ndarray, out: dict) -> None:
+    """Re-split a checkpointed (words, counts, bins) part into per-shard
+    sub-parts by the bin -> shard map (a resume recomputes the same map:
+    the hash map is a formula, the LPT map comes from the same sample)."""
+    words, counts, bins = part
+    chips = owner_map[bins]
+    for c in np.unique(chips):
+        idx = chips == c
+        out.setdefault(int(c), []).append((words[idx], counts[idx], bins[idx]))
 
 
 def _check_dropped(dropped_total, cap: int) -> None:

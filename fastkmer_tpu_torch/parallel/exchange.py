@@ -12,7 +12,9 @@ on ``cuda:{i % device_count()}``) those copies stay in that card's memory.
 One step, per shard: the full-mode extract (the CUDA kernel for a CUDA
 shard, its plain version on the CPU) -> owner lookup -> ``route_by_owner``
 into [n·cap] send buffers; then the exchange; then, per owner, a
-``count_sorted`` of the received rows and the bins of its unique rows.
+``count_sorted`` of the received rows and the bins of its unique rows, or
+with ``use_ht`` (useHT=1) a ``count_hashed`` whose collisions are totalled
+over the shards.
 Capacity overflow is counted, never silent: the step returns the total of
 dropped rows so that the caller can retry with a larger ``cap``.
 """
@@ -26,8 +28,8 @@ import numpy as np
 import torch
 
 from ..core.bits import num_words
-from ..ops import binhash, count_sort, cuda_extract, superkmer
-from ..pipeline import not_ported, resolve_device, table_to_host
+from ..ops import binhash, count_hash, count_sort, cuda_extract, superkmer
+from ..pipeline import resolve_device, table_to_host
 
 AXIS = "data"
 
@@ -60,12 +62,15 @@ class ShardCounts(NamedTuple):
     """Per-shard counting result: one list entry per shard, on its device.
 
     words:    [S, W] int32 sorted unique-run view (S = n·cap received slots,
-              times C = smax - k + 1 for super-k-mer transport)
+              times C = smax - k + 1 for super-k-mer transport); under the
+              HT engine the owner's unique rows alone, in k-mer order
     bins:     [S] int32, meaningful where is_uniq (0 elsewhere)
     is_uniq:  [S] bool
     counts:   [S] int32
     n_valid:  [] counted instances
     dropped:  [] total rows dropped by capacity overflow, on the first shard's device
+    collision: [] int32 shards that found a fingerprint collision (HT
+              engine; 0 for the sort engine), on the first shard's device
     """
 
     words: list
@@ -74,6 +79,7 @@ class ShardCounts(NamedTuple):
     counts: list
     n_valid: list
     dropped: torch.Tensor
+    collision: torch.Tensor
 
 
 def route_by_owner(owner: torch.Tensor, valid: torch.Tensor, cols: tuple, n: int, cap: int,
@@ -143,7 +149,20 @@ def _count_owned(words: torch.Tensor, valid: torch.Tensor, k: int, m: int, B: in
     idx = torch.nonzero(sc.is_uniq).squeeze(1)
     bins = torch.zeros_like(sc.counts)
     bins[idx] = binhash.bins_from_words(sc.words[idx], k, m, B)
-    return sc.words, bins, sc.is_uniq, sc.counts, sc.n_valid
+    return sc.words, bins, sc.is_uniq, sc.counts, sc.n_valid, None
+
+
+def _count_owned_ht(words: torch.Tensor, valid: torch.Tensor, k: int, m: int, B: int):
+    """Owner side of the HT engine: fingerprint-count the received rows.
+    -> _count_owned's tuple over the unique rows alone, in k-mer order (the
+    JAX step keeps fingerprint order, which its host merge of several
+    batches then mistakes for k-mer order at W >= 3), and the collision
+    flag."""
+    sc, coll = count_hash.count_hashed(words, None, valid)
+    uwords, counts = count_hash.unique_in_kmer_order(sc)
+    is_uniq = torch.ones(counts.shape[0], dtype=torch.bool, device=counts.device)
+    return (uwords, binhash.bins_from_words(uwords, k, m, B), is_uniq, counts, sc.n_valid,
+            coll)
 
 
 def _mesh_step(mesh: Mesh, cap: int, route, count):
@@ -153,6 +172,7 @@ def _mesh_step(mesh: Mesh, cap: int, route, count):
     ``count`` empties the lane list once it has read it, so the received
     lanes are freed before the owner's sort."""
     dev0 = mesh.devices[0]
+    no_collision = torch.zeros((), dtype=torch.int32, device=dev0)
 
     def step(shards: list) -> ShardCounts:
         send, drops = [], []
@@ -167,10 +187,12 @@ def _mesh_step(mesh: Mesh, cap: int, route, count):
             lanes, recv[d] = recv[d], None
             per_shard.append(count(lanes))
             del lanes
-        words, bins, is_uniq, counts, n_valid = map(list, zip(*per_shard))
+        words, bins, is_uniq, counts, n_valid, colls = map(list, zip(*per_shard))
+        collision = no_collision if colls[0] is None else torch.stack(
+            [c.to(dev0) for c in colls]).sum(dtype=torch.int32)
         return ShardCounts(
             words=words, bins=bins, is_uniq=is_uniq, counts=counts, n_valid=n_valid,
-            dropped=torch.stack([d.to(dev0) for d in drops]).sum(),
+            dropped=torch.stack([d.to(dev0) for d in drops]).sum(), collision=collision,
         )
 
     return step
@@ -184,10 +206,10 @@ def build_distributed_count(mesh: Mesh, k: int, m: int, B: int, cap: int,
     the owner of its bin.  When the sentinel is unambiguous (k % 16 != 0)
     invalid rows and unfilled slots carry the all-ones sentinel and no ok
     lane ships; otherwise the ok lane rides along.  ``cap`` is the
-    per-(source, destination) row capacity."""
-    if use_ht:
-        raise not_ported("useHT=1 on the mesh (the hash-table engine)")
+    per-(source, destination) row capacity.  ``use_ht`` counts on the owner
+    with the HT engine (``_count_owned_ht``)."""
     n = mesh.size
+    count_owned = _count_owned_ht if use_ht else _count_owned
     owner_tabs = _owner_tables(mesh, owner_map)
     sentinel_ok = count_sort.sentinel_safe_for(k)
     W = num_words(k)
@@ -207,7 +229,7 @@ def build_distributed_count(mesh: Mesh, k: int, m: int, B: int, cap: int,
         rok = lanes[W - 1] != -1 if sentinel_ok else lanes[W] == 1
         words = torch.stack(lanes[:W], 1)
         lanes.clear()
-        return _count_owned(words, rok, k, m, B)
+        return count_owned(words, rok, k, m, B)
 
     return _mesh_step(mesh, cap, route, count)
 
@@ -221,10 +243,10 @@ def build_distributed_count_smer(mesh: Mesh, k: int, m: int, B: int, cap: int, s
     length, and the owner's sort pays for the expansion padding (every
     record expands to C = smax - k + 1 slots, valid or not).  ``cap``
     counts records per (source, destination) pair; unfilled slots carry
-    n_kmers = 0, so no ok lane ships."""
-    if use_ht:
-        raise not_ported("useHT=1 on the mesh (the hash-table engine)")
+    n_kmers = 0, so no ok lane ships.  ``use_ht`` as in
+    build_distributed_count."""
     n = mesh.size
+    count_owned = _count_owned_ht if use_ht else _count_owned
     owner_tabs = _owner_tables(mesh, owner_map)
     PW = superkmer.payload_words(smax)
 
@@ -244,7 +266,7 @@ def build_distributed_count_smer(mesh: Mesh, k: int, m: int, B: int, cap: int, s
         kwords, kvalid, _ = superkmer.expand(payload, nk, torch.zeros_like(nk), k, smax)
         del payload, nk
         S, C, W = kwords.shape
-        return _count_owned(kwords.reshape(S * C, W), kvalid.reshape(S * C), k, m, B)
+        return count_owned(kwords.reshape(S * C, W), kvalid.reshape(S * C), k, m, B)
 
     return _mesh_step(mesh, cap, route, count)
 

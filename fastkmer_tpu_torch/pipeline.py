@@ -1,21 +1,26 @@
 """Job orchestration on torch — the port of ``fastkmer_tpu.pipeline``'s
-single-chip sort-engine count job (``execute_job`` with useHT=0):
+single-chip count job (``execute_job``) and its repair:
 
     host ingest -> fixed-shape [R, L] code batches           (shared, host)
       -> stage-1 extract, the CUDA kernel (ops.cuda_extract) (device)
-      -> DeviceAccumulator fan-in weighted merge             (device)
-      -> finalize: bins recomputed from words, host spills   (device -> host)
+      -> sort engine: DeviceAccumulator fan-in weighted merge (device)
+         HT engine (useHT=1): per-batch fingerprint count     (device)
+      -> finalize: bins recomputed from words, host merge    (device -> host)
       -> per-bin text or npz output + manifest               (shared, host)
 
 Every device function takes its tensors on an explicit ``device``.  On a
 CUDA device the extract always runs as the kernel; on the CPU it runs the
-kernel's plain version.  Outputs are byte-identical to the JAX package's.
+kernel's plain version.  ``checkpoint_dir`` makes a job resumable
+(output.manifest.BatchCheckpointer), ``keep_table`` keeps the table beside
+the output for ``repair_output``.  Outputs are byte-identical to the JAX
+package's.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import json
 import os
 from typing import Iterable, NamedTuple
 
@@ -26,10 +31,10 @@ from .config import JobConfig
 from .core.bits import num_words
 from .ingest import batch as batching
 from .ingest.prefetch import prefetched
-from .ops import binhash, count_sort, cuda_extract
+from .ops import binhash, count_hash, count_sort, cuda_extract
 from .output import manifest as manifest_mod
 from .output import writer
-from .utils.timing import StageTimer
+from .utils.timing import StageTimer, maybe_profile
 
 
 class CountResult(NamedTuple):
@@ -107,6 +112,23 @@ def _batch_count(codes: torch.Tensor, k: int, m: int, B: int):
     idx = torch.nonzero(sc.is_uniq).squeeze(1)
     words = sc.words[idx, :W]
     return table_to_host(words, sc.counts[idx], binhash.bins_from_words(words, k, m, B))
+
+
+def _batch_count_ht(codes: torch.Tensor, coll: torch.Tensor, k: int, m: int, B: int):
+    """HT-engine step (useHT=1): the count-mode extract (the kernel on CUDA),
+    then fingerprint-keyed counting.  -> ((words [U, W] int32 in ascending
+    k-mer order, counts int32 [U], bins int32 [U]) on the device, coll |
+    this batch's collision flag).  The flag stays on the device and is read
+    once after the loop; bins come from the run-head words."""
+    W = num_words(k)
+    flagged = not count_sort.sentinel_safe_for(k)
+    cols = cuda_extract.extract_sentinel(codes, k, m, B, flag_lane=flagged)
+    # validity from the flag lane (0 on valid rows) or the all-ones sentinel
+    valid = cols[W] == 0 if flagged else cols[W - 1] != -1
+    sc, batch_coll = count_hash.count_hashed(torch.stack(cols[:W], 1), None, valid)
+    del cols, valid
+    words, counts = count_hash.unique_in_kmer_order(sc)
+    return (words, counts, binhash.bins_from_words(words, k, m, B)), coll | batch_coll
 
 
 def _batch_count_dedup(codes: torch.Tensor, k: int, m: int, B: int, cap: int):
@@ -363,10 +385,14 @@ def count_batches(
     device_accumulate: bool | None = None,
     unique_ub: int | None = None,
     prededup: bool | None = None,
+    engine: str = "sort",
+    checkpointer: manifest_mod.BatchCheckpointer | None = None,
 ) -> CountResult:
     """Stream code batches through the device and return the merged table.
 
-    ``device_accumulate`` defaults to True on CUDA (and whenever
+    ``engine`` is "sort" (useHT=0) or "hash" (useHT=1: per-batch
+    fingerprint counts, merged on the host).  ``device_accumulate``
+    defaults to True for the sort engine on CUDA (and whenever
     ``unique_ub`` or a forced ``prededup`` asks for the accumulator).
     ``prededup``: per-batch count + compaction before accumulation.  None
     (default) is adaptive: every 16th batch runs the dedup attempt as a
@@ -374,6 +400,10 @@ def count_batches(
     mode (engage below 0.24), decided DEDUP_LAG batches later; an overflow
     at the npos/4 cap admits the batch's raw columns instead.  True/False
     force the mode.
+
+    ``checkpointer`` resumes from its cursor (the covered batches are read
+    and skipped) and checkpoints every ``checkpointer.interval`` batches:
+    the accumulator by a forced spill, the host path per batch.
     """
     dev = resolve_device(device)
     timer = timer or StageTimer()
@@ -381,8 +411,23 @@ def count_batches(
     n_reads = 0
     n_bases = 0
     W = num_words(k)
+    if unique_ub is not None and engine != "sort":
+        # the HT engine's per-batch loop has no host-side room checks for
+        # the assertion to elide: asserting it is a caller error
+        raise NotImplementedError(
+            "unique_ub (sync-free accumulator feed) is a sort-engine "
+            "feature; the HT engine has no per-batch sync to skip"
+        )
+    if prededup is True and engine != "sort":
+        raise NotImplementedError(
+            "prededup (per-batch count+compact) feeds the sort-engine "
+            "accumulator; the HT engine already counts per batch"
+        )
     if device_accumulate is None:
-        device_accumulate = unique_ub is not None or prededup is True or dev.type == "cuda"
+        device_accumulate = engine == "sort" and (
+            unique_ub is not None or prededup is True or dev.type == "cuda"
+        )
+    device_accumulate = device_accumulate and engine == "sort"
     # k % 16 == 0: the bare sentinel is ambiguous; the flag lane restores it
     flagged = device_accumulate and not count_sort.sentinel_safe_for(k)
     acc = (
@@ -431,6 +476,18 @@ def count_batches(
         if prededup is None:
             dedup_mode = int(q_nu) / max(qpos, 1) < ENGAGE_BELOW
 
+    skip = 0
+    persisted_spills = 0
+    if checkpointer is not None:
+        # resume: the persisted parts re-enter the final merge, and the
+        # batches they cover are skipped below
+        skip = checkpointer.completed_batches()
+        if acc is not None:
+            acc.host_spills.extend(checkpointer.load_parts())
+            persisted_spills = len(acc.host_spills)
+        else:
+            parts.extend(checkpointer.load_parts())
+    coll = torch.zeros((), dtype=torch.bool, device=dev) if engine == "hash" else None
     it = iter(batches)
     batch_idx = -1
     while True:
@@ -440,6 +497,10 @@ def count_batches(
             break
         codes, nr, nb = item
         batch_idx += 1
+        if batch_idx < skip:  # counted before the interruption
+            n_reads += nr
+            n_bases += nb
+            continue
         # admit lagged dedup parts first: decisions from batch
         # j - DEDUP_LAG take effect on this batch's dispatch kind
         if acc is not None and dedup_pending:
@@ -454,7 +515,9 @@ def count_batches(
         )
         with _span(timer, "device_count", dev):
             codes_t = torch.from_numpy(codes).to(dev)
-            if acc is not None and (dedup_mode or probe):
+            if engine == "hash":
+                dpart, coll = _batch_count_ht(codes_t, coll, k, m, B)
+            elif acc is not None and (dedup_mode or probe):
                 npos = codes.shape[0] * (codes.shape[1] - k + 1)
                 dcap = (npos + (-npos % (1 << 16))) // 4
                 dcols, dwts, d_nu, d_over, d_raw = _batch_count_dedup(
@@ -463,7 +526,7 @@ def count_batches(
             elif acc is not None:
                 cols = _batch_extract_keys(codes_t, k, m, B, flagged)
             else:
-                parts.append(_batch_count(codes_t, k, m, B))
+                part = _batch_count(codes_t, k, m, B)
         if acc is not None:
             with _span(timer, "device_merge", dev):
                 if dedup_mode or probe:
@@ -472,8 +535,34 @@ def count_batches(
                     )
                 else:
                     _feed_window("raw", lambda: acc.add_raw(cols))
+            if checkpointer is not None and (batch_idx + 1) % checkpointer.interval == 0:
+                with _span(timer, "checkpoint", dev):
+                    # the cursor claims every batch <= batch_idx is in the
+                    # persisted spills, so the in-flight dedup parts (and an
+                    # overflowed part's raw columns) are admitted first
+                    while dedup_pending:
+                        _admit_dedup(dedup_pending.pop(0))
+                    acc._merge_pending()
+                    stats = acc._stats()
+                    acc._raise_if_lost(stats)
+                    acc._spill(stats)
+                    checkpointer.save_spills(batch_idx + 1, acc.host_spills[persisted_spills:],
+                                             persisted_spills)
+                    persisted_spills = len(acc.host_spills)
+        else:
+            with timer.span("host_compact"):
+                if engine == "hash":
+                    part = table_to_host(*dpart)
+                    del dpart
+                parts.append(part)
+                if checkpointer is not None:
+                    checkpointer.save_batch(batch_idx, *part)
         n_reads += nr
         n_bases += nb
+    if coll is not None and bool(coll):  # the run's one read of the flag
+        raise count_hash.FingerprintCollision(
+            "64-bit fingerprint collision; re-run with the sort engine"
+        )
     with _span(timer, "device_merge", dev):
         while dedup_pending:  # drain in-flight dedup parts before finalize
             _admit_dedup(dedup_pending.pop(0))
@@ -507,56 +596,142 @@ def execute_job(
     unique_ub: int | None = None,
     prededup: bool | None = None,
     device="cuda",
+    checkpoint_interval: int = 32,
 ) -> CountResult:
     """Count k-mers in cfg.dataset and (when cfg.write) write per-bin text
     files, or counts.npz for ``use_kryo_serializer``, plus the manifest.
 
+    ``cfg.use_ht`` selects the HT engine; both engines give the same table,
+    and HT text bins carry no ``EOF`` line (the reference's HT writer).
+    ``checkpoint_dir`` makes the run resumable: a rerun with the same
+    directory skips the batches it covers; it is emptied when the run
+    completes.  ``checkpoint_interval``: batches between checkpoints.
+    ``trace_dir`` wraps the count in a torch.profiler trace.
+    ``keep_table`` also writes table.npz beside the output, so that
+    ``repair_output`` rewrites damaged files without recounting.
     ``unique_ub``: caller-asserted bound on distinct k-mers (e.g. genome
-    length) for the sync-free accumulator feed; verified at finalize.
-    ``checkpoint_dir``, ``trace_dir``, ``keep_table`` and useHT=1 raise:
-    they are not ported yet."""
-    if cfg.use_ht:
-        raise not_ported("useHT=1 (the hash-table engine)")
-    if checkpoint_dir is not None:
-        raise not_ported("checkpoint_dir (batch-level resume)")
-    if trace_dir is not None:
-        raise not_ported("trace_dir (profiler traces)")
-    if keep_table:
-        raise not_ported("keep_table (the table.npz sidecar)")
+    length) for the sync-free accumulator feed; verified at finalize."""
     dev = resolve_device(device)
     timer = StageTimer()
     if verbose:
         print(cfg.describe())
+    ckpt = (
+        manifest_mod.BatchCheckpointer(checkpoint_dir, checkpoint_interval)
+        if checkpoint_dir
+        else None
+    )
     batches = prefetched(
         batching.batch_file(
             cfg.dataset, cfg.sequence_type, cfg.k, cfg.reads_per_batch, cfg.read_len
         )
     )
-    res = count_batches(
-        batches, cfg.k, cfg.m, cfg.b, timer, device=dev,
-        unique_ub=unique_ub, prededup=prededup,
-    )
+    with maybe_profile(trace_dir):
+        res = count_batches(
+            batches, cfg.k, cfg.m, cfg.b, timer, device=dev,
+            unique_ub=unique_ub, prededup=prededup,
+            engine="hash" if cfg.use_ht else "sort", checkpointer=ckpt,
+        )
     if cfg.write:
         with timer.span("write_output"):
-            write_output(cfg, res.words, res.counts, res.bins)
+            write_output(cfg, res.words, res.counts, res.bins, keep_table=keep_table)
+    if ckpt is not None:
+        ckpt.clear()  # the run completed; its checkpoints are spent
     return res._replace(timings=timer.as_dict())
 
 
-def write_output(cfg: JobConfig, words: np.ndarray, counts: np.ndarray, bins: np.ndarray) -> None:
-    """Per-bin text files with the EOF sentinel, or counts.npz for
-    ``use_kryo_serializer``, plus the manifest, into cfg.output_dir."""
+def write_output(cfg: JobConfig, words: np.ndarray, counts: np.ndarray, bins: np.ndarray,
+                 keep_table: bool = False) -> None:
+    """Per-bin text files (with the EOF sentinel for the sort engine), or
+    counts.npz for ``use_kryo_serializer``, plus the manifest, into
+    cfg.output_dir; ``keep_table`` adds the table.npz sidecar."""
     if cfg.use_kryo_serializer:
         writer.write_binary_with_manifest(
             cfg.output_dir, dataclasses_dict(cfg), words, counts, bins, cfg.k,
         )
-        return
-    bin_hashes = writer.write_bin_files(
-        cfg.output_dir, words, counts, bins, cfg.k,
-    )
-    manifest_mod.write_manifest(
-        cfg.output_dir, dataclasses_dict(cfg), words, counts, bins, bin_hashes=bin_hashes,
-    )
+    else:
+        bin_hashes = writer.write_bin_files(
+            cfg.output_dir, words, counts, bins, cfg.k, eof_sentinel=not cfg.use_ht,
+        )
+        manifest_mod.write_manifest(
+            cfg.output_dir, dataclasses_dict(cfg), words, counts, bins,
+            bin_hashes=bin_hashes,
+        )
+    if keep_table:
+        manifest_mod.write_table_sidecar(cfg.output_dir, words, counts, bins)
 
 
 def dataclasses_dict(cfg: JobConfig) -> dict:
     return {k: v for k, v in dataclasses.asdict(cfg).items() if not callable(v)}
+
+
+def dataclasses_replace(cfg: JobConfig, **kw) -> JobConfig:
+    return dataclasses.replace(cfg, **kw)
+
+
+def config_from_manifest(cfg_dict: dict) -> JobConfig:
+    """The JobConfig a manifest records (``dataclasses_dict`` of the run's
+    config).  A manifest of another job (multiseq's extra fields) raises."""
+    names = {f.name for f in dataclasses.fields(JobConfig)}
+    if set(cfg_dict) - names:
+        raise not_ported(f"repair of an output with config fields {sorted(set(cfg_dict) - names)}")
+    return JobConfig(**cfg_dict)
+
+
+def repair_output(cfg: JobConfig, verbose: bool = True, device="cuda") -> dict:
+    """Verify cfg.output_dir against its manifest and rewrite only the
+    missing or mismatched files; idempotent.
+
+    The table comes from a checksum-valid ``table.npz`` sidecar (written by
+    ``execute_job(keep_table=True)``) with zero recounting, or else from a
+    recount of the dataset on ``device``.  The recount and the rewrite use
+    the config the manifest records, not the caller's: the manifest says
+    what made the directory (the JAX package recounts a binary output with
+    the caller's config and stamps it with the manifest's).  Returns
+    verify_output's status after the repair."""
+    status = manifest_mod.verify_output(cfg.output_dir)
+    if status["ok"]:
+        return status
+    with open(os.path.join(cfg.output_dir, manifest_mod.MANIFEST)) as f:
+        man = json.load(f)
+    extras = man.get("extra_files", {})
+    if man.get("binary") and ("shards" in man or any(n.startswith("counts.part") for n in extras)):
+        # each process of a multi-host run owns its counts.part<N>.npz and
+        # no one process holds the full table: re-run the shard's owner
+        raise NotImplementedError(
+            "sharded binary outputs (counts.part<N>.npz) are repaired "
+            "by re-running their owning processes; single-process "
+            "repair_output covers counts.npz only"
+        )
+    bad_extras = set(status["extra_missing"]) | set(status["extra_mismatched"])
+    if man.get("binary") and "counts.npz" not in bad_extras:
+        # the count table is the only artifact rebuilt here; a damaged
+        # sibling needs its own job re-run: report rather than recount
+        return status
+    run_cfg = config_from_manifest(man["config"])
+    table = manifest_mod.load_table_sidecar(cfg.output_dir)
+    if table is not None:
+        if verbose:
+            print("repairing from the table.npz sidecar (no recount)")
+    else:
+        res = execute_job(dataclasses_replace(run_cfg, write=False), verbose=False,
+                          device=device)
+        table = (res.words, res.counts, res.bins)
+    words, counts, bins = table
+    if man.get("binary"):
+        if verbose:
+            print("repairing binary output (counts.npz)")
+        siblings = {n: h for n, h in extras.items() if n != "counts.npz"}
+        writer.write_binary_with_manifest(
+            cfg.output_dir, man["config"], words, counts, bins, run_cfg.k,
+            extra_files=siblings,
+        )
+        return manifest_mod.verify_output(cfg.output_dir)
+    bad = set(status["missing"]) | set(status["mismatched"])
+    if verbose:
+        print(f"repairing {len(bad)} bins: {sorted(bad)}")
+    sel = np.isin(bins, list(bad))
+    writer.write_bin_files(
+        cfg.output_dir, words[sel], counts[sel], bins[sel], run_cfg.k,
+        eof_sentinel=not run_cfg.use_ht, clean=False,  # a partial rewrite
+    )
+    return manifest_mod.verify_output(cfg.output_dir)

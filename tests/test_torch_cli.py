@@ -1,6 +1,6 @@
 """``python -m fastkmer_tpu_torch.cli`` vs ``python -m fastkmer_tpu.cli``:
 the same 13 positionals produce the same bytes; every flag that is not
-ported raises; ``--device cuda`` without a card raises.  The mesh CLI
+ported raises, and the ported ones leave their artifacts; ``--device cuda`` without a card raises.  The mesh CLI
 (``--mesh N --smer-transport``) is held against the JAX CLI by
 ``test_torch_mesh_cli.py``."""
 
@@ -15,6 +15,7 @@ pytest.importorskip("jax")
 import torch  # noqa: E402
 
 from fastkmer_tpu import cli as jcli  # noqa: E402
+from fastkmer_tpu_torch import api as tapi  # noqa: E402
 from fastkmer_tpu_torch import cli as tcli  # noqa: E402
 
 from .golden.make_golden import B, K, M  # noqa: E402
@@ -75,14 +76,33 @@ def test_cli_matches_jax_cli(tmp_path):
     ([], "1"),
 ])
 def test_unported_flags_raise(tmp_path, extra, use_ht):
-    """Each unported flag raises, on the mesh too; --smer-transport alone
-    has no exchange to shape (the JAX CLI's error)."""
-    argv = _argv(GOLDEN_FA, str(tmp_path) + "/", use_ht=use_ht) + ["--device", "cpu"]
-    match = ("use --mesh N" if extra == ["--smer-transport"]
-             else "not yet ported to fastkmer_tpu_torch")
-    with pytest.raises(NotImplementedError, match=match):
-        tcli.main(argv + extra)
-    assert not os.listdir(tmp_path)  # raised before any output
+    """Each flag that is still unported raises, on the mesh too;
+    --smer-transport alone has no exchange to shape (the JAX CLI's error).
+    The flags ported since (useHT=1, the checkpoint flags, --keep-table,
+    --trace-dir) run and leave their artifact: a verified directory, an
+    emptied checkpoint directory, table.npz, the trace, no EOF line."""
+    out = tmp_path / "out"
+    extra = [str(tmp_path / a) if a in ("ck", "tr") else a for a in extra]
+    argv = _argv(GOLDEN_FA, str(out) + "/", use_ht=use_ht) + ["--device", "cpu"]
+    if extra[:1] in (["--multiseq"], ["--smer-transport"], ["--distance-measure"]):
+        match = ("use --mesh N" if extra == ["--smer-transport"]
+                 else "not yet ported to fastkmer_tpu_torch")
+        with pytest.raises(NotImplementedError, match=match):
+            tcli.main(argv + extra)
+        assert not os.listdir(tmp_path)  # raised before any output
+        return
+    assert tcli.main(argv + extra) == 0
+    d = str(out / f"t_k{K}_m{M}_x3_b{B}_s0")
+    assert tapi.verify_output(d)["ok"]
+    if "--checkpoint-dir" in extra:
+        assert os.path.isdir(tmp_path / "ck") and not os.listdir(tmp_path / "ck")
+    if "--keep-table" in extra:
+        assert os.path.exists(os.path.join(d, "table.npz"))
+    if "--trace-dir" in extra:
+        assert os.listdir(tmp_path / "tr")
+    bins = [n for n in os.listdir(d) if n.startswith("bin")]
+    assert bins and all(open(os.path.join(d, n), "rb").read().endswith(b"EOF")
+                        == (use_ht == "0") for n in bins)
 
 
 def test_device_cuda_without_card_raises(tmp_path):

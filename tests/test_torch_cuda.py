@@ -4,7 +4,8 @@ sort kernel are held against their plain torch versions (bit-equality,
 where valid for full mode's words and sigs; keys bit-equal and row
 multisets equal per block for the sort), and the count job and 2-shard
 mesh jobs (per batch and streaming, with and without the block-sort
-compaction) on cuda against the same jobs on the CPU; edge shapes of
+compaction; the HT engine on one device through kernel A and on the mesh
+through kernel B) on cuda against the same jobs on the CPU; edge shapes of
 the redesigned kernels (k = m + 1, k = 4, k = 256, rows of k bases, a row
 ending on a block of starts, the count kernel's flag lane, its opt-in
 shared memory and its byte route at the wrapper's largest k; all-equal
@@ -206,6 +207,52 @@ def test_mesh_job_cuda_matches_cpu(cuda, tmp_path, smer):
     for f in ("words", "counts", "bins", "owner_map"):
         np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
     assert got.exchange_bytes == want.exchange_bytes and got.n_instances > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,m", [(28, 10), (32, 9), (55, 9)])
+def test_ht_count_cuda_matches_cpu(cuda, tmp_path, k, m):
+    """The HT engine's single-device step extracts through kernel A (one
+    launch a batch; the flag lane at k = 32) and gives the CPU run's table;
+    it equals the sort engine's."""
+    fa = str(tmp_path / "reads.fa")
+    _write_fasta(fa, k)
+
+    def run(device, engine="hash"):
+        return pipeline.count_batches(batching.batch_file(fa, 0, k, 8, 1024), k, m, 64,
+                                      device=device, engine=engine)
+
+    before = cuda_extract.LAUNCHES
+    got = run(cuda)
+    assert cuda_extract.LAUNCHES == before + got.n_batches > before
+    for want in (run("cpu"), run(cuda, "sort")):
+        for a, b in zip(got[:3], want[:3]):
+            np.testing.assert_array_equal(a, b)
+    assert got.n_instances > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("smer", [True, False])
+def test_mesh_ht_cuda_matches_cpu(cuda, tmp_path, smer):
+    """The mesh's HT step routes through kernel B (a launch per shard and
+    batch, none of kernel A) and gives the CPU run's table."""
+    fa = str(tmp_path / "reads.fa")
+    _write_fasta(fa, 40)
+    cfg = JobConfig(dataset=fa, output_directory="", k=40, m=9, max_b=64,
+                    reads_per_batch=8, read_len=1024, write=False, use_ht=True)
+
+    def run(device):
+        return driver.execute_job_distributed(cfg, exchange.make_mesh(2, device),
+                                              smer_transport=smer, verbose=False)
+
+    before = (cuda_extract.FULL_LAUNCHES, cuda_extract.LAUNCHES)
+    got = run(cuda)
+    assert cuda_extract.FULL_LAUNCHES >= before[0] + 2 * got.n_batches
+    assert cuda_extract.LAUNCHES == before[1]
+    want = run("cpu")
+    for f in ("words", "counts", "bins"):
+        np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
+    assert got.n_instances > 0
 
 
 def _sort_lanes(seed: int, N: int, keys: int, vals: int) -> list:

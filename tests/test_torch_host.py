@@ -2,11 +2,13 @@
 ``config.JobConfig`` (fields, defaults, derived values, ``describe``),
 ``ingest.batch.batch_file`` on FASTA, FASTQ and gzip input through the
 native and the python parsers, the LPT and hash owner maps and the
-exchange cap, ``output.writer`` + ``manifest`` bytes, ``verify_output``
-and the native k-way merge.  Exact equality throughout."""
+exchange cap, ``output.writer`` + ``manifest`` bytes (with the HT
+engine's and a repair's writer options), ``verify_output``, the table
+sidecar and checkpoint files, and the native k-way merge.  Exact equality throughout."""
 
 import dataclasses
 import gzip
+import json
 import os
 
 import numpy as np
@@ -136,3 +138,63 @@ def test_native_merge_is_the_jax_one():
     assert want is not None and got is not None
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("k", [28, 55])
+def test_writer_options_are_the_jax_ones(tmp_path, k):
+    """``eof_sentinel=False`` (the HT engine's bins), ``clean=False`` (a
+    repair's partial rewrite, which keeps the other bins) and
+    ``write_binary_with_manifest(extra_files=...)``: the same bytes as the
+    JAX writer."""
+    words, counts, bins = _table(k + 1, k, 300)
+    half = bins < 8
+    for d, writer in (("j", jwriter), ("t", twriter)):
+        out = str(tmp_path / d)
+        assert writer.write_bin_files(out, words, counts, bins, k, eof_sentinel=False)
+        writer.write_bin_files(out, words[half], counts[half] + 1, bins[half], k,
+                               eof_sentinel=False, clean=False)
+    got, want = _dir_bytes(str(tmp_path / "t")), _dir_bytes(str(tmp_path / "j"))
+    assert got == want and not any(b.endswith(b"EOF") for b in got.values())
+    assert len(got) == len(np.unique(bins))  # clean=False kept the other bins
+    extra = {"distances.json": "ab" * 32}
+    for d, writer in (("jk", jwriter), ("tk", twriter)):
+        writer.write_binary_with_manifest(str(tmp_path / d), {"k": k}, words, counts, bins, k,
+                                          extra_files=extra)
+    jm, tm = (_dir_bytes(str(tmp_path / d))["manifest.json"] for d in ("jk", "tk"))
+    jm, tm = json.loads(jm), json.loads(tm)
+    assert tm["extra_files"].pop("distances.json") == jm["extra_files"].pop("distances.json")
+    # the npz hashes differ by the zip members' timestamps only
+    assert sorted(tm["extra_files"]) == sorted(jm["extra_files"]) == ["counts.npz"]
+    tm["extra_files"] = jm["extra_files"] = None
+    assert tm == jm
+
+
+def test_table_sidecar_and_checkpoint_files_are_the_jax_ones(tmp_path):
+    """table.npz and a checkpoint directory written by either package load
+    in the other; a sidecar that disagrees with the manifest is refused by
+    both."""
+    words, counts, bins = _table(3, 28, 200)
+    for d, writer_man, other in (("j", jman, tman), ("t", tman, jman)):
+        out = str(tmp_path / d)
+        writer_man.write_manifest(out, {"k": 28}, words, counts, bins)
+        writer_man.write_table_sidecar(out, words, counts, bins)
+        for g, w in zip(other.load_table_sidecar(out), (words, counts, bins)):
+            np.testing.assert_array_equal(g, w)
+        writer_man.write_table_sidecar(out, words, counts + 1, bins)
+        assert other.load_table_sidecar(out) is None and writer_man.load_table_sidecar(out) is None
+        ck = str(tmp_path / f"ck_{d}")
+        c = writer_man.BatchCheckpointer(ck, interval=2)
+        c.save_spills(2, [(words, counts, bins)], 0)
+        c.save_spills(4, [(words[:5], counts[:5], bins[:5])] * 2, 1)
+        r = other.BatchCheckpointer(ck)
+        assert r.completed_batches() == 4 and r._cursor() == c._cursor()
+        assert [p[0].shape[0] for p in r.load_parts()] == [200, 5, 5]
+        pb = str(tmp_path / f"pb_{d}")
+        writer_man.BatchCheckpointer(pb).save_batch(0, words, counts, bins)
+        writer_man.BatchCheckpointer(pb).save_batch(1, words[:3], counts[:3], bins[:3])
+        r = other.BatchCheckpointer(pb)
+        assert r.completed_batches() == 2
+        for g, w in zip(r.load_parts()[1], (words[:3], counts[:3], bins[:3])):
+            np.testing.assert_array_equal(g, w)
+    assert (open(tmp_path / "ck_j" / "cursor.json").read()
+            == open(tmp_path / "ck_t" / "cursor.json").read())

@@ -3,6 +3,7 @@
 A fresh interpreter (this test process has jax loaded by conftest)
 imports every module of the port, counts a 2-read FASTA on the CPU on one
 device, on a 2-shard per-batch mesh and on a 2-shard streaming mesh, and
+with the HT engine on one device and the mesh, and
 finds no jax, jaxlib, triton, fastkmer_tpu, fastkmer_tpu.* or root
 benchmarks module.  A second check reads the sources: no module of the port
 and not chip_smoke.py names fastkmer_tpu, jax or the root benchmarks package
@@ -26,15 +27,15 @@ import fastkmer_tpu_torch
 from fastkmer_tpu_torch import api, cli, config, debug, pipeline
 from fastkmer_tpu_torch.core import bits, tbits
 from fastkmer_tpu_torch.ingest import batch, fasta, native, prefetch
-from fastkmer_tpu_torch.ops import (binhash, count_sort, cuda_extract, cuda_sort, extract,
-                                    superkmer, windows)
+from fastkmer_tpu_torch.ops import (binhash, count_hash, count_sort, cuda_extract, cuda_sort,
+                                    extract, superkmer, windows)
 from fastkmer_tpu_torch.output import manifest, writer
 from fastkmer_tpu_torch.output import native as out_native
 from fastkmer_tpu_torch.parallel import driver, exchange, partitioner, stream
 from fastkmer_tpu_torch.utils import cudabuild, nativebuild, timing
 from fastkmer_tpu_torch.benchmarks import (compact_probe, cuda_bitonic_merge, cuda_probe,
-                                           primitives, resume_merge_probe, roofline,
-                                           split_merge_probe)
+                                           e2e_file, ht_vs_sort, primitives, resume_merge_probe,
+                                           roofline, split_merge_probe)
 
 fa = sys.argv[1]
 with open(fa, "w") as f:
@@ -46,6 +47,10 @@ for streaming in (False, True):
                                        streaming=streaming, reads_per_batch=4, read_len=64)
     assert mesh.n_instances == res.n_instances, (streaming, mesh.n_instances)
     assert (mesh.words == res.words).all() and (mesh.counts == res.counts).all()
+for ht in (api.count_kmers(fa, k=13, m=5, bins=16, device="cpu", use_ht=True),
+           api.count_kmers_distributed(fa, n_devices=2, k=13, m=5, bins=16, device="cpu",
+                                       use_ht=True, reads_per_batch=4, read_len=64)):
+    assert (ht.words == res.words).all() and (ht.counts == res.counts).all()
 parts = [(res.words[:2], res.counts[:2], res.bins[:2]), (res.words[1:], res.counts[1:], res.bins[1:])]
 merged = pipeline.merge_partials(parts, 1)
 assert merged[0].shape[0] == res.words.shape[0]

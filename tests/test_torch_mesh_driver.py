@@ -3,7 +3,8 @@ fastkmer_tpu's on a JAX mesh of 8 virtual CPU devices, on the dataset of
 ``test_driver_debug.py``: the same table, exchange bytes, balance and owner
 map, and a byte-identical output directory, for k-mer and super-k-mer
 transport under hash and LPT placement at k = 28 and 32.  Also: overflow
-retries, the sync-free feed's overflow error, and the knobs that raise.
+retries, the sync-free feed's overflow error, the knob that raises and the
+knobs ported since.
 (The streaming path is held against JAX in ``test_torch_stream_driver.py``.)
 Integer outputs, so the tolerance is bit-equality."""
 
@@ -118,12 +119,29 @@ def test_sync_free_feed_raises_on_a_drop(dataset):
     ({"smer_transport": True, "prededup": True}, False, "prededup requires the streaming"),
 ])
 def test_unported_knobs_raise(tmp_path, dataset, kw, use_ht, msg):
+    """A forced prededup off the streaming path raises, as in the JAX
+    package.  The knobs ported since (useHT=1, checkpoint_dir, keep_table,
+    trace_dir) run on both mesh paths and leave their artifact."""
     fa, _ = dataset
     cfg = _cfg(fa, str(tmp_path) + "/out_", 28, 10)
     cfg.use_ht = use_ht
-    with pytest.raises(NotImplementedError, match=msg):
-        tdriver.execute_job_distributed(cfg, tx.make_mesh(2, "cpu"), verbose=False, **kw)
-    assert not os.listdir(tmp_path)  # raised before any output
+    kw = {a: str(tmp_path / v) if a.endswith("_dir") else v for a, v in kw.items()}
+    mesh = tx.make_mesh(2, "cpu")
+    if msg.startswith("prededup"):
+        with pytest.raises(NotImplementedError, match=msg):
+            tdriver.execute_job_distributed(cfg, mesh, verbose=False, **kw)
+        assert not os.listdir(tmp_path)  # raised before any output
+        return
+    res = tdriver.execute_job_distributed(cfg, mesh, verbose=False, **kw)
+    assert res.n_instances > 0 and tapi.verify_output(cfg.output_dir)["ok"]
+    if "checkpoint_dir" in kw:
+        assert not os.listdir(kw["checkpoint_dir"])  # emptied on completion
+    if "trace_dir" in kw:
+        assert os.listdir(kw["trace_dir"])
+    assert os.path.exists(os.path.join(cfg.output_dir, "table.npz")) == ("keep_table" in kw)
+    bins = [n for n in os.listdir(cfg.output_dir) if n.startswith("bin")]
+    assert bins and all(open(os.path.join(cfg.output_dir, n), "rb").read().endswith(b"EOF")
+                        != use_ht for n in bins)
 
 
 def test_api_count_kmers_distributed(tmp_path, dataset):

@@ -221,21 +221,34 @@ def test_api_matches_jax(tmp_path, mixed_fa):
 @pytest.mark.parametrize("kw", [{"checkpoint_dir": "ck"}, {"trace_dir": "tr"},
                                 {"keep_table": True}])
 def test_unported_execute_job_options_raise(tmp_path, mixed_fa, kw):
-    cfg = JobConfig(dataset=mixed_fa, output_directory=str(tmp_path) + "/", k=25, m=8)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tpipe.execute_job(cfg, verbose=False, device="cpu", **kw)
+    """The options ported since (checkpoint_dir, trace_dir, keep_table and
+    useHT=1) run and leave their artifact: an emptied checkpoint directory,
+    the trace, table.npz, and the same table under the HT engine."""
+    kw = {a: str(tmp_path / v) if a.endswith("_dir") else v for a, v in kw.items()}
+    cfg = JobConfig(dataset=mixed_fa, output_directory=str(tmp_path) + "/", k=25, m=8,
+                    reads_per_batch=16, read_len=256)
+    res = tpipe.execute_job(cfg, verbose=False, device="cpu", **kw)
+    assert tapi.verify_output(cfg.output_dir)["ok"]
+    if "checkpoint_dir" in kw:
+        assert not os.listdir(kw["checkpoint_dir"])
+    if "trace_dir" in kw:
+        assert os.listdir(kw["trace_dir"])
+    assert os.path.exists(os.path.join(cfg.output_dir, "table.npz")) == ("keep_table" in kw)
     cfg.use_ht = True
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tpipe.execute_job(cfg, verbose=False, device="cpu")
+    ht = tpipe.execute_job(cfg, verbose=False, device="cpu")
+    np.testing.assert_array_equal(ht.words, res.words)
+    np.testing.assert_array_equal(ht.counts, res.counts)
 
 
 def test_api_checkpoint_dir_reaches_the_job(tmp_path, mixed_fa):
     """``count_kmers`` takes ``checkpoint_dir`` as the JAX API does and hands
-    it to the job, which says resume is not ported (not a ``JobConfig``
-    TypeError)."""
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tapi.count_kmers(mixed_fa, k=25, m=8, bins=32, checkpoint_dir=str(tmp_path / "ck"),
-                         device="cpu")
+    it to the job: the run checkpoints there (every batch here) and empties
+    the directory when it completes."""
+    ck = tmp_path / "ck"
+    res = tapi.count_kmers(mixed_fa, k=25, m=8, bins=32, checkpoint_dir=str(ck),
+                           checkpoint_interval=1, device="cpu")
+    assert ck.is_dir() and not os.listdir(ck)
+    _assert_tables_equal(res, japi.count_kmers(mixed_fa, k=25, m=8, bins=32))
 
 
 def test_part_weights_past_int32_spill_instead_of_wrapping():
