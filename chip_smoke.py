@@ -7,8 +7,9 @@ source, started together) and drives the port's three paths: the
 single-chip sort-engine count job, the per-batch mesh count job with
 super-k-mer transport, and the streaming mesh counter (the default of
 ``--mesh N``); the HT engine on the single device and the mesh; resume,
-repair and traces; then the probe scripts that run kernels D and E
-(``fastkmer_tpu_torch.benchmarks``).  Each phase raises on failure, so the
+repair and traces; the probe scripts that run kernels D and E
+(``fastkmer_tpu_torch.benchmarks``); then multiseq (``--multiseq``) on
+the single device and the streaming mesh.  Each phase raises on failure, so the
 process exits non-zero:
 
 1. card: needs ``torch.cuda.is_available()``; prints nvidia-smi's name and
@@ -97,7 +98,11 @@ process exits non-zero:
 10. the probes on the card, each with the kernels' counts set to 0 just
    before it: ``split_merge_probe.run(27)`` (its exactness fields must
    hold), ``resume_merge_probe.run()`` and ``cuda_probe.run(24)``; their
-   JSON lines are printed, and each must have launched its kernel;
+   JSON lines are printed, and each must have launched its kernel; then
+   ``multiseq_probe.run()`` (the accumulator with and without the seq
+   lane, 8 batches of [4096, 4096], S = 8; kernel A must launch) and
+   ``distance_probe.run()`` under SquaredEuclidean and KLDLog2 (device
+   Gram against host Gram at S = 8, 64, 256; raises past 1e-4 relative);
 11. the HT engine (useHT=1) on the single device at phase 5's workload:
    kernel A once a batch and B never, the manifest, the instance count,
    ascending files, and bin files equal to phase 5's with each trailing
@@ -117,15 +122,40 @@ process exits non-zero:
    ``--keep-table`` (the directory phase 11's plus table.npz); then one
    bin of it corrupted and ``repair_output`` restores it byte for byte
    with no kernel launch; and ``--trace-dir`` on phase 4's FASTA writes a
-   torch.profiler trace.
+   torch.profiler trace;
+14. multiseq, small: 4 sequences (a 32768-base genome and three copies
+   with 1% substitutions, headers ``S<s>.<i>``, 1000 150-base reads each,
+   0.1% N) through ``cli.main --multiseq`` at k = 28, 32 and 55 under the
+   three measures, cuda and cpu directories identical (bins,
+   ``distances.json``, manifest) and kernel A at least once a batch at
+   every k (k = 32 through its flag lane); ``--mesh 4
+   useCustomPartitioner=1 4`` cuda == cpu, its bins and distances equal
+   to the single device's, kernel B at least four times a batch; a run
+   killed after batch 3 and resumed gives the uninterrupted directory;
+   ``--prededup on`` without a mesh raises;
+15. multiseq at real size on the single device: 8 sequences (a 2^21-base
+   genome and seven copies with 1% substitutions), 150-base reads from
+   both strands at 8x coverage of each, 0.1% N, grouped by sequence
+   (134,217,728 bases), k=28 m=10 x=3 B=2048 write=1, 4096 x 4096
+   batches, ``--unique-ub 16777216``: rc 0, the manifest verified, the
+   instance count equal to the host's count of valid windows, kernel A at
+   least once a batch, bin files byte-identical to the count job's on the
+   same FASTA (run in the phase); ``accumulate_distances(device=True)`` on
+   the run's table within 1e-4 relative of the host's under the three
+   measures, with TF32 allowed process-wide; wall time, Gbp/s with and
+   without ``write_output``, spans and peak memory logged;
+16. phase 15's FASTA through ``--mesh 4 useCustomPartitioner=1 4`` (four
+   shards on one card): bin files and ``distances.json`` identical to
+   phase 15's, kernel B at least four times a batch; ``exchange_bytes``,
+   balance, spans and peak memory logged.
 
 Phases 11-13 run after 7b, on its data; phase 7b's merge-window timing
-and phases 8-10 follow them.  Each new phase logs its seconds.  The script
+and phases 8-10 follow them, then 14-16.  Each new phase logs its seconds.  The script
 imports only the port (``fastkmer_tpu_torch``), torch and numpy.
 
 The line before the last is one JSON object with the five kernels'
 launches (D's: split_merge's and resume_merge's summed; A's and B's also
-by phase), errors, times, bounds and shares of the bound (``bound_share`` =
+by phase, 14-16 included), errors, times, bounds and shares of the bound (``bound_share`` =
 bound_ms / ms); the last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -203,6 +233,36 @@ def sample_reads(rng, genome: np.ndarray, n: int, n_rate: float) -> np.ndarray:
     reads[rc] = 3 - reads[rc, ::-1]
     reads[rng.random(reads.shape) < n_rate] = 4
     return reads
+
+
+def mutated_copies(rng, genome: np.ndarray, n: int, rate: float) -> list:
+    """``genome`` and n - 1 copies of it, each with an independent ``rate``
+    of point substitutions (a base replaced by one of the other three)."""
+    out = [genome]
+    for _ in range(n - 1):
+        g = genome.copy()
+        sub = rng.random(g.shape[0]) < rate
+        g[sub] = (g[sub] + rng.integers(1, 4, size=int(sub.sum()), dtype=np.uint8)) % 4
+        out.append(g)
+    return out
+
+
+def write_tagged_fasta(path: str, reads: list) -> None:
+    """reads[s] = [n, len] codes (4 = N) of sequence s (s < 10) -> FASTA
+    grouped by sequence, one record ``>S<s>.<i>`` (i zero-padded to seven
+    digits) per row: the multiseq tag of each record is ``S<s>``."""
+    with open(path, "wb") as f:
+        for s, rs in enumerate(reads):
+            n, ln = rs.shape
+            recs = np.empty((n, 12 + ln + 1), np.uint8)
+            recs[:, :4] = np.frombuffer(f">S{s}.".encode(), np.uint8)
+            idx = np.arange(n)
+            for p in range(7):
+                recs[:, 10 - p] = ord("0") + idx // 10**p % 10
+            recs[:, 11] = ord("\n")
+            recs[:, 12:-1] = np.frombuffer(b"ACGTN", np.uint8)[rs]
+            recs[:, -1] = ord("\n")
+            recs.tofile(f)
 
 
 def valid_windows(reads: np.ndarray, k: int) -> int:
@@ -300,13 +360,15 @@ class Interrupted(Exception):
 
 
 @contextlib.contextmanager
-def dying_reader(call: int, at: int):
-    """Inside the block, the port's batch reader raises Interrupted when its
-    ``call``-th use (0-based: a mesh's pre-pass reads the file first) is
-    about to yield batch ``at``, after ``at`` batches went to the card."""
+def dying_reader(call: int, at: int, reader_name: str = "batch_file"):
+    """Inside the block, the port's batch reader (``ingest.batch.<reader_name>``:
+    ``batch_file``, or multiseq's ``batch_codes_dense_tagged``) raises
+    Interrupted when its ``call``-th use (0-based: a mesh's pre-pass reads
+    the file first) is about to yield batch ``at``, after ``at`` batches
+    went to the card."""
     from fastkmer_tpu_torch.ingest import batch as batching
 
-    real = batching.batch_file
+    real = getattr(batching, reader_name)
     calls = [0]
 
     def reader(*args, **kw):
@@ -317,23 +379,24 @@ def dying_reader(call: int, at: int):
                 raise Interrupted(f"batch {at}")
             yield item
 
-    batching.batch_file = reader
+    setattr(batching, reader_name, reader)
     try:
         yield
     finally:
-        batching.batch_file = real
+        setattr(batching, reader_name, real)
 
 
-def interrupt_and_resume(run, ck: str, call: int, cursor: int, tag: str) -> tuple:
-    """``run()`` dies after batch 10 (``dying_reader``), leaving a checkpoint
-    at batch ``cursor`` in ``ck``; then a fresh ``run()`` resumes from it.
-    -> (the resumed run's result, its seconds, the interrupted run's
-    seconds).  ``ck`` must be empty afterwards."""
+def interrupt_and_resume(run, ck: str, call: int, cursor: int, tag: str, at: int = 10,
+                         reader_name: str = "batch_file") -> tuple:
+    """``run()`` dies after batch ``at`` (``dying_reader``), leaving a
+    checkpoint at batch ``cursor`` in ``ck``; then a fresh ``run()`` resumes
+    from it.  -> (the resumed run's result, its seconds, the interrupted
+    run's seconds).  ``ck`` must be empty afterwards."""
     from fastkmer_tpu_torch.output import manifest
 
     t0 = time.perf_counter()
     try:
-        with dying_reader(call, 10):
+        with dying_reader(call, at, reader_name):
             run()
     except Interrupted:
         pass
@@ -459,6 +522,254 @@ def check_mesh_run(summary: dict, n_bases: int, expect: int, out5: str, tag: str
     check(same_bin_files(out5, out), f"{tag}: bin files differ from the single device's")
 
 
+MS_MEASURES = ("multisequence.SquaredEuclidean", "multisequence.KLDLog2", "multisequence.KLDLogN")
+MS_GENOME = 1 << 21  # phase 15: each of the 8 sequences
+MS_SEQS = 8
+MS_COVERAGE = 8
+
+
+@contextlib.contextmanager
+def captured_multiseq():
+    """Inside the block, the single-device multiseq jobs the CLI calls keep
+    their results in the yielded list (the CLI prints only a summary;
+    phase 15 holds the run's own table)."""
+    from fastkmer_tpu_torch.multiseq import pipeline as ms_pipeline
+
+    got = []
+    real = ms_pipeline.execute_multiseq_job
+
+    def run(*a, **kw):
+        got.append(real(*a, **kw))
+        return got[-1]
+
+    ms_pipeline.execute_multiseq_job = run
+    try:
+        yield got
+    finally:
+        ms_pipeline.execute_multiseq_job = real
+
+
+def multiseq_small(tmp: str) -> dict:
+    """Phase 14: multiseq on 4 sequences (a 32768-base genome and three
+    copies with 1% substitutions, 1000 150-base reads of each, 0.1% N)
+    through ``cli.main --multiseq`` at k = 28, 32 and 55 under the three
+    measures, cuda against cpu; ``--mesh 4 useCustomPartitioner=1 4`` cuda
+    against cpu and the single device; a run killed after batch 3 and
+    resumed; the single-device ``--prededup on`` error.  -> kernel A's and
+    B's launches."""
+    import torch
+
+    from fastkmer_tpu_torch import cli
+    from fastkmer_tpu_torch.multiseq import pipeline as ms_pipeline
+    from fastkmer_tpu_torch.ops import cuda_extract
+
+    t14 = time.perf_counter()
+    rng = np.random.default_rng(14)
+    genomes = mutated_copies(rng, rng.integers(0, 4, size=1 << 15, dtype=np.uint8), 4, 0.01)
+    fa = os.path.join(tmp, "ms14.fa")
+    write_tagged_fasta(fa, [sample_reads(rng, g, 1000, 0.001) for g in genomes])
+    stats = os.path.join(tmp, "stats.json")
+
+    def argv(k, m, measure, d, prefix="ms14_", part=("0",), extra=()):
+        return [str(k), str(m), "3", "2048", "0", "0", fa, tmp + "/", prefix, "1", "0", *part,
+                "--device", d, "--reads-per-batch", "32", "--read-len", "4096",
+                "--multiseq", "--distance-measure", measure, "--stats-json", stats, *extra]
+
+    launches = {"A": 0, "B": 0}
+    single = {}
+    for k, m, measure in ((28, 10, MS_MEASURES[0]), (32, 9, MS_MEASURES[1]),
+                          (55, 9, MS_MEASURES[2])):
+        out = {}
+        for d in ("cuda", "cpu"):
+            cuda_extract.LAUNCHES = cuda_extract.FULL_LAUNCHES = 0
+            check(cli.main(argv(k, m, measure, d)) == 0, f"14: k={k} {d}: cli.main failed")
+            summary = json.load(open(stats))
+            if d == "cuda":
+                check(cuda_extract.LAUNCHES >= summary["n_batches"] > 4
+                      and cuda_extract.FULL_LAUNCHES == 0,
+                      f"14: k={k}: {cuda_extract.LAUNCHES} kernel A launches, "
+                      f"{cuda_extract.FULL_LAUNCHES} of B for {summary['n_batches']} batches")
+                launches["A"] += cuda_extract.LAUNCHES
+            out[d] = dir_bytes(summary["output_dir"])
+        check(out["cuda"] == out["cpu"], f"14: k={k}: cuda and cpu directories differ")
+        check("distances.json" in out["cuda"] and summary["sequences"] == ["S0", "S1", "S2", "S3"]
+              and summary["n_distance_pairs"] == (6 if k == 28 else 12),
+              f"14: k={k}: {summary['sequences']}, {summary['n_distance_pairs']} pairs")
+        single[k] = (summary["output_dir"], out["cuda"])
+        log(f"[multiseq 14] k={k} {measure}: {summary['n_unique_kmer_seq']} (k-mer, seq) pairs, "
+            f"{summary['n_batches']} batches, {len(out['cuda'])} files cuda == cpu")
+    mesh = {}
+    for d in ("cuda", "cpu"):
+        cuda_extract.LAUNCHES = cuda_extract.FULL_LAUNCHES = 0
+        check(cli.main(argv(28, 10, MS_MEASURES[0], d, "ms14mesh_", ("1", "4"),
+                            ("--mesh", "4"))) == 0, f"14: mesh {d}: cli.main failed")
+        summary = json.load(open(stats))
+        if d == "cuda":
+            check(cuda_extract.FULL_LAUNCHES >= 4 * summary["n_batches"]
+                  and cuda_extract.LAUNCHES == 0,
+                  f"14: mesh: {cuda_extract.FULL_LAUNCHES} kernel B launches, "
+                  f"{cuda_extract.LAUNCHES} of A for {summary['n_batches']} batches")
+            launches["B"] = cuda_extract.FULL_LAUNCHES
+        mesh[d] = dir_bytes(summary["output_dir"])
+    check(mesh["cuda"] == mesh["cpu"], "14: mesh cuda and cpu directories differ")
+    check({n: b for n, b in mesh["cuda"].items() if n != "manifest.json"}
+          == {n: b for n, b in single[28][1].items() if n != "manifest.json"},
+          "14: the mesh's bins or distances.json differ from the single device's")
+    log(f"[multiseq 14] --mesh 4: cuda == cpu, bins and distances.json == the single "
+        f"device's; exchange_bytes {summary['exchange_bytes']}, {launches['B']} kernel B launches")
+    out28, want = single[28]
+    with open(os.path.join(out28, "manifest.json")) as f:
+        cfg = ms_pipeline.MultiseqConfig(**json.load(f)["config"])
+    ck = os.path.join(tmp, "ck14")
+    _, t_resume, t_die = interrupt_and_resume(
+        lambda: ms_pipeline.execute_multiseq_job(cfg, verbose=False, device="cuda",
+                                                 device_accumulate=True, checkpoint_dir=ck,
+                                                 checkpoint_interval=2),
+        ck, 0, 2, "14 resume", at=3, reader_name="batch_codes_dense_tagged")
+    check(dir_bytes(out28) == want, "14: the resumed directory differs")
+    log(f"[multiseq 14] killed after batch 3, resumed from batch 2: directory == the "
+        f"uninterrupted one ({t_die:.2f} s + {t_resume:.2f} s)")
+    try:
+        cli.main(argv(28, 10, MS_MEASURES[0], "cuda", extra=("--prededup", "on")))
+    except NotImplementedError as e:
+        log(f"[multiseq 14] --prededup on without a mesh raises: {e}")
+    else:
+        raise RuntimeError("14: --prededup on without a mesh did not raise")
+    torch.cuda.synchronize()
+    log(f"[multiseq 14] phase 14 {time.perf_counter() - t14:.2f} s")
+    return launches
+
+
+def multiseq_real(tmp: str) -> dict:
+    """Phases 15 and 16: multiseq at real size, 8 sequences (a 2^21-base
+    genome and seven copies with 1% substitutions), 150-base reads from
+    both strands at 8x coverage of each, 0.1% N, grouped by sequence:
+    134,217,728 bases.  15: the single device against the count job on the
+    same FASTA and the device Gram against the host under the three
+    measures; 16: the streaming mesh against phase 15.  -> kernel A's
+    launches in 15 and B's in 16."""
+    import torch
+
+    from fastkmer_tpu_torch import api, cli
+    from fastkmer_tpu_torch.multiseq import distances as ms_distances
+    from fastkmer_tpu_torch.multiseq import pipeline as ms_pipeline
+    from fastkmer_tpu_torch.ops import cuda_extract
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(15)
+    genomes = mutated_copies(rng, rng.integers(0, 4, size=MS_GENOME, dtype=np.uint8),
+                             MS_SEQS, 0.01)
+    reads = [sample_reads(rng, g, MS_COVERAGE * MS_GENOME // READ_LEN, 0.001) for g in genomes]
+    fa = os.path.join(tmp, "ms15.fa")
+    write_tagged_fasta(fa, reads)
+    expect = sum(valid_windows(r, 28) for r in reads)
+    n_bases = sum(r.size for r in reads)
+    del genomes, reads
+    log(f"[multiseq 15] {n_bases} bases in {MS_SEQS} sequences, {expect} valid windows; "
+        f"data made in {time.perf_counter() - t0:.1f} s")
+    stats = os.path.join(tmp, "stats.json")
+    base = ["28", "10", "3", "2048", "0", "0", fa, tmp + "/"]
+    opts = ["--device", "cuda", "--reads-per-batch", "4096", "--read-len", "4096",
+            "--unique-ub", str(MS_SEQS * MS_GENOME), "--stats-json", stats]
+
+    # --- 15. the single device ---------------------------------------------
+    t15 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_extract.LAUNCHES = cuda_extract.FULL_LAUNCHES = 0
+    t0 = time.perf_counter()
+    with captured_multiseq() as got:
+        rc = cli.main(base + ["ms15_", "1", "0", "0", "--multiseq"] + opts)
+    wall = time.perf_counter() - t0
+    launches_a = cuda_extract.LAUNCHES
+    peak = torch.cuda.max_memory_allocated()
+    check(rc == 0, f"15: cli.main returned {rc}")
+    s15 = json.load(open(stats))
+    res = got[0]
+    out15 = s15["output_dir"]
+    nb = s15["n_batches"]
+    check(cuda_extract.FULL_LAUNCHES == 0, "15: the single device launched kernel B")
+    check(nb >= -(-n_bases // (4096 * 4096)) and launches_a >= nb,
+          f"15: {launches_a} kernel A launches for {nb} batches")
+    check(api.verify_output(out15)["ok"], "15: manifest verify failed")
+    check(s15["n_instances"] == expect, f"15: n_instances {s15['n_instances']} != valid "
+                                        f"windows {expect}")
+    check(s15["sequences"] == [f"S{i}" for i in range(MS_SEQS)], f"15: {s15['sequences']}")
+    n_lines, total, ascending = read_bin_table(out15, 28)
+    check(total == expect and ascending, f"15: written counts {total}, ascending {ascending}")
+    count_s = wall - s15["timings"]["write_output"]
+    log(f"[multiseq 15] {s15['n_unique_kmer_seq']} (k-mer, seq) pairs, {n_lines} distinct "
+        f"k-mers, {nb} batches, {launches_a} kernel A launches")
+    log(f"[multiseq 15] end to end {wall:.2f} s = {n_bases / wall / 1e9:.4f} Gbp/s; without "
+        f"write_output {n_bases / count_s / 1e9:.4f} Gbp/s")
+    log(f"[multiseq 15] stage timings: {json.dumps(s15['timings'])}")
+    log(f"[multiseq 15] peak device memory {peak / 2**30:.2f} GiB")
+    t0 = time.perf_counter()
+    check(cli.main(base + ["cnt15_", "1", "0", "0"] + opts) == 0, "15: the count job failed")
+    t_count = time.perf_counter() - t0
+    sc = json.load(open(stats))
+    check(same_bin_files(out15, sc["output_dir"]), "15: bin files differ from the count job's")
+    shutil.rmtree(sc["output_dir"])
+    log(f"[multiseq 15] the count job on the same FASTA: {t_count:.2f} s "
+        f"(spans {json.dumps(sc['timings'])}); bin files identical")
+    S = len(res.sequence_names)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True  # the Gram must not take it
+    try:
+        for name in MS_MEASURES:
+            measure = ms_distances.get_measure(name)
+            t0 = time.perf_counter()
+            host = ms_pipeline.accumulate_distances(res.words, res.seqs, res.counts, S, measure)
+            t_host = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            dev = ms_pipeline.accumulate_distances(res.words, res.seqs, res.counts, S, measure,
+                                                   device=True)
+            t_dev = time.perf_counter() - t0
+            off = ~np.eye(S, dtype=bool)
+            rel = float((np.abs(dev - host)[off] / np.abs(host)[off]).max())
+            check(rel <= 1e-4, f"15: {name}: device Gram {rel:.3e} relative from the host")
+            check(torch.backends.cuda.matmul.allow_tf32, "15: the TF32 setting was not restored")
+            log(f"[multiseq 15] {name}: device Gram within {rel:.3e} relative of the host "
+                f"(host {t_host:.3f} s, device {t_dev:.3f} s, {res.words.shape[0]} rows)")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    log(f"[multiseq 15] phase 15 {time.perf_counter() - t15:.2f} s")
+
+    # --- 16. the streaming mesh --------------------------------------------
+    t16 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_extract.LAUNCHES = cuda_extract.FULL_LAUNCHES = 0
+    t0 = time.perf_counter()
+    rc = cli.main(base + ["ms16_", "1", "0", "1", "4", "--multiseq", "--mesh", "4"] + opts)
+    wall16 = time.perf_counter() - t0
+    launches_b = cuda_extract.FULL_LAUNCHES
+    peak16 = torch.cuda.max_memory_allocated()
+    check(rc == 0, f"16: cli.main returned {rc}")
+    s16 = json.load(open(stats))
+    out16 = s16["output_dir"]
+    check(cuda_extract.LAUNCHES == 0, "16: the mesh launched kernel A")
+    check(s16["n_batches"] == nb and launches_b >= 4 * nb,
+          f"16: {launches_b} kernel B launches for {s16['n_batches']} batches on 4 shards")
+    check(s16["placement"] == ["cuda:0"] * 4, f"16: placement {s16['placement']}")
+    check(api.verify_output(out16)["ok"], "16: manifest verify failed")
+    check(same_bin_files(out15, out16), "16: bin files differ from phase 15's")
+    check(open(os.path.join(out15, "distances.json"), "rb").read()
+          == open(os.path.join(out16, "distances.json"), "rb").read(),
+          "16: distances.json differs from phase 15's")
+    count16 = wall16 - s16["timings"]["write_output"]
+    log(f"[multiseq 16] --mesh 4: {s16['n_unique_kmer_seq']} pairs, {launches_b} kernel B "
+        f"launches; bin files and distances.json == phase 15's")
+    log(f"[multiseq 16] end to end {wall16:.2f} s = {n_bases / wall16 / 1e9:.4f} Gbp/s; "
+        f"without write_output {n_bases / count16 / 1e9:.4f} Gbp/s (4 shards on one card)")
+    log(f"[multiseq 16] stage timings: {json.dumps(s16['timings'])}")
+    log(f"[multiseq 16] exchange_bytes {s16['exchange_bytes']}, balance "
+        f"{json.dumps(s16['balance'])}")
+    log(f"[multiseq 16] peak device memory {peak16 / 2**30:.2f} GiB; phase 16 "
+        f"{time.perf_counter() - t16:.2f} s")
+    return {"A": launches_a, "B": launches_b}
+
+
 def main() -> int:
     try:
         import torch
@@ -472,6 +783,7 @@ def main() -> int:
     try:
         from fastkmer_tpu_torch import api, cli
         from fastkmer_tpu_torch.benchmarks import cuda_bitonic_merge, cuda_probe
+        from fastkmer_tpu_torch.benchmarks import distance_probe, multiseq_probe
         from fastkmer_tpu_torch.benchmarks import resume_merge_probe, split_merge_probe
         from fastkmer_tpu_torch.benchmarks._common import HBM_BYTES_PER_S, rand_i32, time_ms
         from fastkmer_tpu_torch.core.tbits import pair_key
@@ -1198,9 +1510,27 @@ def main() -> int:
     copy_launches, tr_launches = cuda_probe.COPY_LAUNCHES, cuda_probe.TRANSPOSE_LAUNCHES
     check(copy_launches > 0 and tr_launches > 0, "cuda_probe launched no pass kernel")
     check([p["probe"] for p in probes] == ["copy_pass", "transpose_pass"], "cuda_probe lines")
+    cuda_extract.LAUNCHES = 0
+    ms_lines = multiseq_probe.run()
+    # a (k-mer, seq) pair per distinct k-mer at least
+    check(ms_lines[1]["n_unique"] >= ms_lines[0]["n_unique"] > 0,
+          f"multiseq_probe: {ms_lines[1]['n_unique']} pairs, {ms_lines[0]['n_unique']} k-mers")
+    check(cuda_extract.LAUNCHES > 0, "multiseq_probe launched no kernel A")
+    for line in ms_lines:
+        log(f"[probes] multiseq_probe {json.dumps(line)}")
+    for name in ("multisequence.SquaredEuclidean", "multisequence.KLDLog2"):
+        for line in distance_probe.run(name):  # raises past 1e-4 relative
+            log(f"[probes] distance_probe {json.dumps(line)}")
     log(f"[probes] bitonic merge launches: split_merge {split_launches}, resume_merge "
         f"{resume_launches}; pass launches: copy {copy_launches}, transpose {tr_launches}; "
         f"phase 10 {time.perf_counter() - t10:.2f} s")
+
+    # --- 14-16. multiseq: small, cuda against cpu; at real size on the
+    # single device and the streaming mesh --------------------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        ms_small = multiseq_small(tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        ms_real = multiseq_real(tmp)
 
     log(f"[smoke] every phase passed in {time.perf_counter() - t_run:.1f} s")
     # bounds: each input byte read once, each output byte written once
@@ -1224,9 +1554,12 @@ def main() -> int:
          merge_ms, merge_plain_ms, merge_bound_ms, merge_lib_ms, "bitonic_merge.cu"),
     ]
     # launches on each path that runs a kernel: A on the single device (5,
-    # and 11 under useHT=1), B on the meshes (7 streaming, 12 HT per batch)
-    by_phase = {"extract_count": {"5": launches, "11": ht_launches},
-                "extract_full": {"7": stream_full, "12": ht_full}}
+    # 11 under useHT=1, 14-15 multiseq), B on the meshes (7 streaming, 12 HT
+    # per batch, 14 and 16 multiseq)
+    by_phase = {"extract_count": {"5": launches, "11": ht_launches, "14": ms_small["A"],
+                                  "15": ms_real["A"]},
+                "extract_full": {"7": stream_full, "12": ht_full, "14": ms_small["B"],
+                                 "16": ms_real["B"]}}
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": f"fastkmer_tpu_torch/csrc/{src}",
         "replaces": replaces, "launches": n, "max_abs_err": err, "ms": ms, "plain_ms": pms,

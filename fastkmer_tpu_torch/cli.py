@@ -15,11 +15,14 @@ device's pre-dedup.  useHT=1 selects the HT engine (the per-batch path on
 a mesh).  ``--checkpoint-dir`` makes a run resumable, ``--keep-table``
 keeps the table beside the output for a repair without recount, and
 ``--trace-dir`` wraps the run in a torch.profiler trace.  ``--multiseq``
-and ``--distance-measure`` are not ported yet and raise
-NotImplementedError instead of being ignored.
+switches to multisequence counting with pairwise distances under
+``--distance-measure`` (multiseq.pipeline on one device, multiseq.distributed
+on the streaming mesh), with the same positionals.  A flag that has no
+effect on the selected path raises, as in the JAX CLI.
 
     python -m fastkmer_tpu_torch.cli 28 10 3 512 0 0 in.fa out/ run_ 1 0 0
     python -m fastkmer_tpu_torch.cli 28 10 3 512 0 0 in.fa out/ run_ 1 0 1 4 --mesh 4
+    python -m fastkmer_tpu_torch.cli 28 10 3 512 0 0 in.fa out/ run_ 1 0 0 --multiseq
 """
 
 from __future__ import annotations
@@ -29,9 +32,10 @@ import json
 import sys
 
 from .config import JobConfig
-from .pipeline import execute_job, not_ported
+from .pipeline import execute_job
 from .utils.timing import maybe_profile
 
+DEFAULT_MEASURE = "multisequence.SquaredEuclidean"  # --distance-measure
 # the summary's note under useHT=1; the card's times are in PERF.md
 HT_NOTE = ("useHT=1 counts by 64-bit fingerprints with the same table as useHT=0; "
            "its time against useHT=0 on the card is in PERF.md")
@@ -82,36 +86,52 @@ def build_parser() -> argparse.ArgumentParser:
                    help="write a binary table.npz sidecar enabling zero-recount repair")
     p.add_argument("--trace-dir", default=None,
                    help="wrap the run in a torch.profiler trace written here")
-    # accepted for CLI parity with fastkmer_tpu; each raises until ported
-    p.add_argument("--multiseq", action="store_true")
-    p.add_argument("--distance-measure", default=None)
+    p.add_argument("--multiseq", action="store_true",
+                   help="multisequence mode: per-(k-mer, sequence) counts and distances")
+    p.add_argument("--distance-measure", default=DEFAULT_MEASURE,
+                   help="the --multiseq distance (multiseq.distances.MEASURES)")
     return p
 
 
-def _check_ported(args) -> None:
-    for flag, given in (
-        ("--multiseq", args.multiseq),
-        ("--distance-measure", args.distance_measure is not None),
-    ):
-        if given:
-            raise not_ported(flag)
+def _check_flags(args) -> None:
+    """Every accepted flag takes effect on the selected path or raises (the
+    JAX CLI's errors, in its order)."""
+    if args.smer_transport and args.multiseq:
+        raise NotImplementedError(
+            "--smer-transport is a count-job mesh transport; the multiseq "
+            "exchange ships (k-mer, seq) key lanes (no smer record format)"
+        )
     if args.smer_transport and args.mesh <= 1:
         raise NotImplementedError(
             "--smer-transport selects the mesh exchange payload; use "
             "--mesh N (single-chip runs have no exchange)"
         )
+    if not args.multiseq and args.distance_measure != DEFAULT_MEASURE:
+        raise NotImplementedError("--distance-measure applies to --multiseq runs only")
+    if args.multiseq and args.mesh <= 1 and args.prededup == "on":
+        # single-device multiseq has no per-batch dedup step (the
+        # accumulator takes raw (k-mer, seq) keys)
+        raise NotImplementedError(
+            "prededup is a mesh-transport / count-job feature; "
+            "single-chip --multiseq has no dedup step"
+        )
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    _check_ported(args)
+    _check_flags(args)
     # one profiling hook around the whole job, as in the JAX CLI
     with maybe_profile(args.trace_dir):
-        return _run(args)
+        summary = _run_multiseq(args) if args.multiseq else _run(args)
+    print(json.dumps(summary, indent=2))
+    if args.stats_json:
+        with open(args.stats_json, "w") as f:
+            json.dump(summary, f, indent=2)
+    return 0
 
 
-def _run(args) -> int:
-    cfg = JobConfig(
+def _common(args) -> dict:
+    return dict(
         dataset=args.input,
         output_directory=args.output,
         k=args.k,
@@ -126,8 +146,53 @@ def _run(args) -> int:
         prefix=args.prefix,
         reads_per_batch=args.reads_per_batch,
         read_len=args.read_len,
-        use_ht=bool(args.useHT),
     )
+
+
+def _run_multiseq(args) -> dict:
+    """The multiseq job (useHT is not a field of its config, as in the JAX
+    CLI) -> the run summary."""
+    from .multiseq.pipeline import MultiseqConfig, execute_multiseq_job
+
+    cfg = MultiseqConfig(**_common(args), distance_measure=args.distance_measure)
+    prededup = {"auto": None, "on": True, "off": False}[args.prededup]
+    if args.mesh > 1:
+        from .multiseq.distributed import execute_multiseq_job_distributed
+        from .parallel import exchange
+
+        mesh = exchange.make_mesh(args.mesh, args.device)
+        res = execute_multiseq_job_distributed(
+            cfg, mesh, checkpoint_dir=args.checkpoint_dir,
+            checkpoint_interval=args.checkpoint_interval, unique_ub=args.unique_ub,
+            prededup=prededup, keep_table=args.keep_table,
+        )
+        extra = {"exchange_bytes": res.exchange_bytes, "balance": res.balance,
+                 "placement": [str(d) for d in mesh.devices]}
+    else:
+        res = execute_multiseq_job(
+            cfg, checkpoint_dir=args.checkpoint_dir,
+            checkpoint_interval=args.checkpoint_interval, unique_ub=args.unique_ub,
+            keep_table=args.keep_table, device=args.device,
+        )
+        extra = {"sync_free_feed": args.unique_ub is not None}
+    return {
+        "mode": "multiseq",
+        "mesh": args.mesh,
+        "device": args.device,
+        "n_instances": res.n_instances,
+        "n_unique_kmer_seq": int(res.words.shape[0]),
+        "sequences": res.sequence_names,
+        "n_distance_pairs": len(res.distances),
+        "n_batches": res.n_batches,
+        "output_dir": cfg.output_dir if cfg.write else None,
+        "timings": res.timings,
+        **extra,
+    }
+
+
+def _run(args) -> dict:
+    """The count job -> the run summary."""
+    cfg = JobConfig(**_common(args), use_ht=bool(args.useHT))
     prededup = {"auto": None, "on": True, "off": False}[args.prededup]
     if args.mesh > 1:
         from .parallel import driver, exchange
@@ -153,7 +218,7 @@ def _run(args) -> int:
                           checkpoint_interval=args.checkpoint_interval,
                           keep_table=args.keep_table)
         extra = {}
-    summary = {
+    return {
         "mode": "count",
         "mesh": args.mesh,
         "engine": "hash" if cfg.use_ht else "sort",
@@ -170,11 +235,6 @@ def _run(args) -> int:
         "prededup": args.prededup,
         **extra,
     }
-    print(json.dumps(summary, indent=2))
-    if args.stats_json:
-        with open(args.stats_json, "w") as f:
-            json.dump(summary, f, indent=2)
-    return 0
 
 
 if __name__ == "__main__":

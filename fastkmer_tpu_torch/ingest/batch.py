@@ -1,5 +1,6 @@
 """Fixed-shape batching of encoded reads — the port's copy of what it uses
-of ``fastkmer_tpu.ingest.batch`` (the dense packing of ``batch_file``).
+of ``fastkmer_tpu.ingest.batch``: the dense packing of ``batch_file``, and
+the tagged packing of multisequence ingest (``batch_codes_dense_tagged``).
 
 Reads become fixed-capacity [R, L] uint8 code matrices padded with the
 invalid code 4.  Window validity downstream is "window contains no code
@@ -9,7 +10,7 @@ SparkBinKmerCounter.scala:78-97), so padding needs no length mask.
 
 from __future__ import annotations
 
-from typing import Iterator, Tuple
+from typing import Iterable, Iterator, Tuple
 
 import numpy as np
 
@@ -24,6 +25,11 @@ class _DensePacker:
     discarded by the same validity logic that splits on 'N' runs
     (package.scala:739-754), so a record boundary costs one cell instead
     of a whole padded row.
+
+    Multisequence ingest tags each read with its sequence id: every row
+    holds reads of ONE tag, so a per-ROW sid array labels every extracted
+    window, and a row switches (wasting only its tail) when the tag
+    changes.  Untagged reads all carry tag 0.
     """
 
     def __init__(self, reads_per_batch: int, read_len: int):
@@ -32,35 +38,63 @@ class _DensePacker:
 
     def _new(self):
         self.buf = np.full((self.R, self.L), bits.INVALID_CODE, dtype=np.uint8)
+        self.sids = np.zeros(self.R, dtype=np.int32)
         self.row = 0
         self.col = 0
         self.n_reads = 0
         self.n_bases = 0
 
-    def add(self, codes: np.ndarray):
-        """Place one encoded read; yields a full batch when one completes."""
+    def _advance_row(self):
+        """Next row; -> the full batch when the last row was filled."""
+        self.row += 1
+        self.col = 0
+        if self.row == self.R:
+            out = (self.buf, self.sids, self.n_reads, self.n_bases)
+            self._new()
+            return out
+        return None
+
+    def add(self, codes: np.ndarray, tag: int = 0):
+        """Place one encoded read; yields (codes, sids, n_reads, n_bases)
+        when a batch completes."""
         n = codes.shape[0]
         if n > self.L:
             raise ValueError(f"read of length {n} > batch read_len {self.L}")
+        if self.col > 0 and tag != int(self.sids[self.row]):
+            full = self._advance_row()
+            if full is not None:
+                yield full
         need = n if self.col == 0 else n + 1  # +1 separator cell
         if self.col + need > self.L:
-            self.row += 1
-            self.col = 0
+            full = self._advance_row()
+            if full is not None:
+                yield full
             need = n
-            if self.row == self.R:
-                out = (self.buf, self.n_reads, self.n_bases)
-                self._new()
-                yield out
         start = self.col + (need - n)
         self.buf[self.row, start : start + n] = codes
+        self.sids[self.row] = tag
         self.col = start + n
         self.n_reads += 1
         self.n_bases += n
 
     def flush(self):
         if self.n_reads:
-            yield self.buf, self.n_reads, self.n_bases
+            yield self.buf, self.sids, self.n_reads, self.n_bases
             self._new()
+
+
+def batch_codes_dense_tagged(
+    tagged_reads: Iterable[tuple[int, bytes | np.ndarray]],
+    reads_per_batch: int,
+    read_len: int,
+) -> Iterator[Tuple[np.ndarray, np.ndarray, int, int]]:
+    """(sid, read) stream -> (codes [R, L], sids [R], n_reads, n_bases)
+    batches, densely packed with one sequence a row (_DensePacker)."""
+    packer = _DensePacker(reads_per_batch, read_len)
+    for tag, r in tagged_reads:
+        codes = r if isinstance(r, np.ndarray) else bits.encode_ascii(r)
+        yield from packer.add(codes, tag)
+    yield from packer.flush()
 
 
 def batch_file(
@@ -98,8 +132,10 @@ def batch_file(
 
 def _packed(packer: _DensePacker, reads) -> Iterator[Tuple[np.ndarray, int, int]]:
     for codes in reads:
-        yield from packer.add(codes)
-    yield from packer.flush()
+        for buf, _, n_reads, n_bases in packer.add(codes):
+            yield buf, n_reads, n_bases
+    for buf, _, n_reads, n_bases in packer.flush():
+        yield buf, n_reads, n_bases
 
 
 def _batches_from_parsed(

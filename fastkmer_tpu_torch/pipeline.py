@@ -265,10 +265,7 @@ class DeviceAccumulator:
         if self._wt_dev + weight > count_sort.WEIGHT_LIMIT:
             # int32 count wrap guard: bounds weights, not capacity, so it
             # applies under assume_fits too
-            self._merge_pending()
-            stats = self._stats()
-            self._raise_if_lost(stats)
-            self._spill(stats)
+            self.spill()
         self._ensure_room(n_new_ub)
         self.pending.append(part)
         self.rows += int(part[0][0].shape[0])
@@ -332,12 +329,17 @@ class DeviceAccumulator:
         self._acc_ub = 0
         self._wt_dev = 0  # spilled weights left the device (pending is empty)
 
-    def finalize(self) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
-        """-> (unique words [U, lanes] ascending, counts [U], bins [U]) on host."""
+    def spill(self) -> None:
+        """Merge the pending parts and move the table to ``host_spills``
+        (a checkpoint persists them); raises if a unique was lost."""
         self._merge_pending()
         stats = self._stats()
         self._raise_if_lost(stats)
         self._spill(stats)
+
+    def finalize(self) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """-> (unique words [U, lanes] ascending, counts [U], bins [U]) on host."""
+        self.spill()
         if not self.host_spills:
             return (
                 np.zeros((0, self.lanes), np.uint32),
@@ -542,10 +544,7 @@ def count_batches(
                     # overflowed part's raw columns) are admitted first
                     while dedup_pending:
                         _admit_dedup(dedup_pending.pop(0))
-                    acc._merge_pending()
-                    stats = acc._stats()
-                    acc._raise_if_lost(stats)
-                    acc._spill(stats)
+                    acc.spill()
                     checkpointer.save_spills(batch_idx + 1, acc.host_spills[persisted_spills:],
                                              persisted_spills)
                     persisted_spills = len(acc.host_spills)
@@ -581,10 +580,6 @@ def count_batches(
         words, counts, bins, int(counts.sum()), n_bases, n_reads, batch_idx + 1,
         timer.as_dict(),
     )
-
-
-def not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not yet ported to fastkmer_tpu_torch")
 
 
 def execute_job(
@@ -669,12 +664,15 @@ def dataclasses_replace(cfg: JobConfig, **kw) -> JobConfig:
 
 
 def config_from_manifest(cfg_dict: dict) -> JobConfig:
-    """The JobConfig a manifest records (``dataclasses_dict`` of the run's
-    config).  A manifest of another job (multiseq's extra fields) raises."""
-    names = {f.name for f in dataclasses.fields(JobConfig)}
-    if set(cfg_dict) - names:
-        raise not_ported(f"repair of an output with config fields {sorted(set(cfg_dict) - names)}")
+    """The config a manifest records (``dataclasses_dict`` of the run's
+    config): a MultiseqConfig for a multiseq run (its ``distance_measure``
+    field), else a JobConfig."""
+    if "distance_measure" in cfg_dict:
+        from .multiseq.pipeline import MultiseqConfig
+
+        return MultiseqConfig(**cfg_dict)
     return JobConfig(**cfg_dict)
+
 
 
 def repair_output(cfg: JobConfig, verbose: bool = True, device="cuda") -> dict:
@@ -682,8 +680,11 @@ def repair_output(cfg: JobConfig, verbose: bool = True, device="cuda") -> dict:
     missing or mismatched files; idempotent.
 
     The table comes from a checksum-valid ``table.npz`` sidecar (written by
-    ``execute_job(keep_table=True)``) with zero recounting, or else from a
-    recount of the dataset on ``device``.  The recount and the rewrite use
+    ``execute_job(keep_table=True)`` or the multiseq jobs) with zero
+    recounting, or else from a recount of the dataset on ``device``; for a
+    multiseq directory the recount is the count job, whose table is the
+    per-k-mer sums its bin files hold.  A damaged ``distances.json`` is
+    reported and not rewritten (it needs the per-sequence table).  The recount and the rewrite use
     the config the manifest records, not the caller's: the manifest says
     what made the directory (the JAX package recounts a binary output with
     the caller's config and stamps it with the manifest's).  Returns
@@ -713,7 +714,11 @@ def repair_output(cfg: JobConfig, verbose: bool = True, device="cuda") -> dict:
         if verbose:
             print("repairing from the table.npz sidecar (no recount)")
     else:
-        res = execute_job(dataclasses_replace(run_cfg, write=False), verbose=False,
+        # the count job of the run's fields (a multiseq run's bins are its
+        # per-k-mer sums)
+        count_cfg = JobConfig(**{f.name: getattr(run_cfg, f.name)
+                                 for f in dataclasses.fields(JobConfig)})
+        res = execute_job(dataclasses_replace(count_cfg, write=False), verbose=False,
                           device=device)
         table = (res.words, res.counts, res.bins)
     words, counts, bins = table

@@ -1,6 +1,8 @@
 """``python -m fastkmer_tpu_torch.cli`` vs ``python -m fastkmer_tpu.cli``:
-the same 13 positionals produce the same bytes; every flag that is not
-ported raises, and the ported ones leave their artifacts; ``--device cuda`` without a card raises.  The mesh CLI
+the same 13 positionals produce the same bytes, with ``--multiseq`` too
+(one device and ``--mesh 4``); a flag without effect on the selected path
+raises with the JAX CLI's error, and the ported ones leave their
+artifacts; ``--device cuda`` without a card raises.  The mesh CLI
 (``--mesh N --smer-transport``) is held against the JAX CLI by
 ``test_torch_mesh_cli.py``."""
 
@@ -76,17 +78,19 @@ def test_cli_matches_jax_cli(tmp_path):
     ([], "1"),
 ])
 def test_unported_flags_raise(tmp_path, extra, use_ht):
-    """Each flag that is still unported raises, on the mesh too;
-    --smer-transport alone has no exchange to shape (the JAX CLI's error).
-    The flags ported since (useHT=1, the checkpoint flags, --keep-table,
-    --trace-dir) run and leave their artifact: a verified directory, an
-    emptied checkpoint directory, table.npz, the trace, no EOF line."""
+    """A flag without effect on the selected path raises, as in the JAX
+    CLI: --smer-transport alone has no exchange to shape, and
+    --distance-measure applies to --multiseq runs only.  Every flag that
+    was ported (useHT=1, the checkpoint flags, --keep-table, --trace-dir,
+    --multiseq) runs and leaves its artifact: a verified directory, an
+    emptied checkpoint directory, table.npz, the trace, no EOF line,
+    distances.json."""
     out = tmp_path / "out"
     extra = [str(tmp_path / a) if a in ("ck", "tr") else a for a in extra]
     argv = _argv(GOLDEN_FA, str(out) + "/", use_ht=use_ht) + ["--device", "cpu"]
-    if extra[:1] in (["--multiseq"], ["--smer-transport"], ["--distance-measure"]):
+    if extra[:1] in (["--smer-transport"], ["--distance-measure"]):
         match = ("use --mesh N" if extra == ["--smer-transport"]
-                 else "not yet ported to fastkmer_tpu_torch")
+                 else "applies to --multiseq runs only")
         with pytest.raises(NotImplementedError, match=match):
             tcli.main(argv + extra)
         assert not os.listdir(tmp_path)  # raised before any output
@@ -94,6 +98,7 @@ def test_unported_flags_raise(tmp_path, extra, use_ht):
     assert tcli.main(argv + extra) == 0
     d = str(out / f"t_k{K}_m{M}_x3_b{B}_s0")
     assert tapi.verify_output(d)["ok"]
+    assert os.path.exists(os.path.join(d, "distances.json")) == ("--multiseq" in extra)
     if "--checkpoint-dir" in extra:
         assert os.path.isdir(tmp_path / "ck") and not os.listdir(tmp_path / "ck")
     if "--keep-table" in extra:
@@ -114,3 +119,49 @@ def test_device_cuda_without_card_raises(tmp_path):
     with pytest.raises(RuntimeError, match="cuda"):
         tcli.main(argv + ["--device", "cuda"])
     assert not os.listdir(tmp_path)
+
+
+@pytest.mark.parametrize("mesh", [1, 4])
+def test_multiseq_cli_matches_jax_cli(tmp_path, mesh):
+    """--multiseq under a non-default measure, on one device and on
+    --mesh 4 with LPT placement: the JAX CLI's directory byte for byte
+    (bins, distances.json, manifest) and its summary's multiseq keys."""
+    from .test_torch_multiseq import write_multiseq_fasta
+
+    fa = str(tmp_path / "in.fa")
+    write_multiseq_fasta(fa, 11, n_seq=3, n_reads=12)
+    out = str(tmp_path) + "/"
+    argv = _argv(fa, out, "ms_", k=28, m=8, b=32, part=("1", "4"), read_len=256)
+    argv += ["--multiseq", "--distance-measure", "kld_log2", "--mesh", str(mesh)]
+    stats = str(tmp_path / "stats.json")
+    assert jcli.main(argv + ["--platform", "cpu", "--stats-json", stats]) == 0
+    d = os.path.join(out, "ms_k28_m8_x3_b32_s0")
+    want, jsum = _dir_bytes(d), json.load(open(stats))
+    assert tcli.main(argv + ["--device", "cpu", "--stats-json", stats]) == 0
+    assert _dir_bytes(d) == want and "distances.json" in want
+    tsum = json.load(open(stats))
+    assert tsum["mode"] == "multiseq" and tsum["device"] == "cpu" and tsum["n_batches"] > 1
+    for key, value in jsum.items():
+        if key != "timings":
+            assert tsum[key] == value, key
+    assert set(tsum["timings"]) == set(jsum["timings"])
+    assert ("exchange_bytes" in tsum) == (mesh > 1) != ("sync_free_feed" in tsum)
+
+
+@pytest.mark.parametrize("extra,match", [
+    (["--multiseq", "--mesh", "4", "--smer-transport"], "no smer record format"),
+    (["--distance-measure", "kld_logn", "--mesh", "4"], "applies to --multiseq runs only"),
+    (["--multiseq", "--prededup", "on"], "single-chip --multiseq has no dedup step"),
+])
+def test_multiseq_flag_errors(tmp_path, extra, match):
+    """The JAX CLI's three multiseq errors, raised before any output, by
+    both CLIs; the default measure without --multiseq is accepted."""
+    argv = _argv(GOLDEN_FA, str(tmp_path / "out") + "/") + extra
+    with pytest.raises(NotImplementedError, match=match):
+        jcli.main(argv + ["--platform", "cpu"])
+    with pytest.raises(NotImplementedError, match=match):
+        tcli.main(argv + ["--device", "cpu"])
+    assert not os.listdir(tmp_path)
+    assert tcli.build_parser().parse_args(argv).distance_measure == (
+        extra[extra.index("--distance-measure") + 1] if "--distance-measure" in extra
+        else "multisequence.SquaredEuclidean")

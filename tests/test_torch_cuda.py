@@ -5,7 +5,10 @@ where valid for full mode's words and sigs; keys bit-equal and row
 multisets equal per block for the sort), and the count job and 2-shard
 mesh jobs (per batch and streaming, with and without the block-sort
 compaction; the HT engine on one device through kernel A and on the mesh
-through kernel B) on cuda against the same jobs on the CPU; edge shapes of
+through kernel B; multiseq on one device through kernel A and on a
+2-shard streaming mesh through kernel B, and the device Gram of its
+distances with TF32 allowed) on cuda against the same jobs
+on the CPU; edge shapes of
 the redesigned kernels (k = m + 1, k = 4, k = 256, rows of k bases, a row
 ending on a block of starts, the count kernel's flag lane, its opt-in
 shared memory and its byte route at the wrapper's largest k; all-equal
@@ -446,3 +449,79 @@ def test_merge_path_kernel_tile_edges(cuda, case):
     elif case == "runs":  # runs of 8192 equal leading keys, A and B alternating
         lanes[0][:] = ((idx % h) // 8192) * 2 + (idx >= h).to(torch.int32)
     _merge_matches_plain(cuda, lanes, 2)
+
+
+def _write_multiseq_fasta(path: str, n_seq: int = 3) -> None:
+    """Reads of one 600-base backbone with 1% substitutions and some Ns,
+    headers ``S<s>.<i>``: the sequences share most k-mers."""
+    rng = np.random.default_rng(9)
+    backbone = rng.integers(0, 4, size=600)
+    with open(path, "w") as f:
+        for s in range(n_seq):
+            for i in range(40):
+                st = int(rng.integers(0, 450))
+                r = backbone[st : st + 150].copy()
+                sub = rng.random(r.size) < 0.01
+                r[sub] = rng.integers(0, 4, size=int(sub.sum()))
+                r[rng.random(r.size) < 0.005] = 4
+                f.write(f">S{s}.{i}\n{''.join('ACGTN'[c] for c in r)}\n")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,m", [(28, 10), (32, 9), (55, 9)])
+@pytest.mark.parametrize("mesh", [1, 2])
+def test_multiseq_cuda_matches_cpu(cuda, tmp_path, k, m, mesh):
+    """Multiseq through kernel A on one device (the flag lane at k = 32
+    replaced by the seq lane) or kernel B on a 2-shard streaming mesh: the
+    CPU run's (k-mer, seq) table, names and distances."""
+    from fastkmer_tpu_torch.multiseq import distributed, pipeline as ms
+
+    fa = str(tmp_path / "ms.fa")
+    _write_multiseq_fasta(fa)
+    cfg = ms.MultiseqConfig(dataset=fa, output_directory="", k=k, m=m, max_b=64,
+                            reads_per_batch=8, read_len=512, write=False,
+                            distance_measure="kld_log2")
+
+    def run(device):
+        if mesh == 1:
+            return ms.execute_multiseq_job(cfg, verbose=False, device=device,
+                                           device_accumulate=True)
+        return distributed.execute_multiseq_job_distributed(
+            cfg, exchange.make_mesh(mesh, device), verbose=False)
+
+    before = cuda_extract.LAUNCHES, cuda_extract.FULL_LAUNCHES
+    got = run(cuda)
+    a, b = cuda_extract.LAUNCHES - before[0], cuda_extract.FULL_LAUNCHES - before[1]
+    assert (a, b > 0) == ((got.n_batches, False) if mesh == 1 else (0, True))
+    want = run("cpu")
+    for f in ("words", "seqs", "counts", "bins"):
+        np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
+    assert got.sequence_names == want.sequence_names == ["S0", "S1", "S2"]
+    assert got.distances == want.distances
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["multisequence.SquaredEuclidean", "multisequence.KLDLog2"])
+def test_device_gram_ignores_tf32(cuda, name):
+    """The device Gram on the card with TF32 allowed process-wide: its
+    float64 matmuls give the CPU's result to 1e-9, and the setting is left
+    as it was."""
+    from fastkmer_tpu_torch.multiseq import distances, pipeline as ms
+
+    measure = distances.get_measure(name)
+    rng = np.random.default_rng(5)
+    S, G = 8, 20000
+    keep = rng.random((G, S)) < 0.6
+    gid, seqs = np.nonzero(keep)
+    counts = rng.integers(1, 3000, size=gid.size).astype(np.float64)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        got = ms._pair_sums_from_device(gid, seqs.astype(np.int32), counts, S, measure,
+                                        device=cuda)
+        assert torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    want = ms._pair_sums_from_device(gid, seqs.astype(np.int32), counts, S, measure,
+                                     device="cpu")
+    np.testing.assert_allclose(got, want, rtol=1e-9, atol=1e-9 * np.abs(want).max())

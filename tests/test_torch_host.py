@@ -1,7 +1,8 @@
 """The port's own copies of the host layer vs the JAX package's modules:
 ``config.JobConfig`` (fields, defaults, derived values, ``describe``),
 ``ingest.batch.batch_file`` on FASTA, FASTQ and gzip input through the
-native and the python parsers, the LPT and hash owner maps and the
+native and the python parsers, multiseq's tagged packing
+(``batch_codes_dense_tagged``, one sequence a row), the LPT and hash owner maps and the
 exchange cap, ``output.writer`` + ``manifest`` bytes (with the HT
 engine's and a repair's writer options), ``verify_output``, the table
 sidecar and checkpoint files, and the native k-way merge.  Exact equality throughout."""
@@ -76,6 +77,39 @@ def test_batch_file_is_the_jax_one(tmp_path, seq_type):
             for (gc, gr, gb), (wc, wr, wb) in zip(got, want):
                 np.testing.assert_array_equal(gc, wc)
                 assert (gr, gb) == (wr, wb)
+
+
+@pytest.mark.parametrize("R,L", [(4, 64), (3, 150)])
+def test_tagged_packer_is_the_jax_one(R, L):
+    """Tagged dense packing: the JAX batches (codes, per-row sids, read and
+    base counts), from strings and from encoded reads; every row holds
+    reads of one sequence, and the reads decode back out in order."""
+    rng = np.random.default_rng(3 + L)
+    tagged = []
+    for _ in range(57):
+        ln = int(rng.integers(5, 40)) if L == 64 else int(rng.integers(20, 150))
+        tagged.append((int(rng.integers(0, 4)), "".join(rng.choice(list("ACGTN"), size=ln))))
+    for encoded in (False, True):
+        reads = [(t, tbits.encode_ascii(r) if encoded else r) for t, r in tagged]
+        want = list(jbatch.batch_codes_dense_tagged(iter(reads), R, L))
+        got = list(tbatch.batch_codes_dense_tagged(iter(reads), R, L))
+        assert len(got) == len(want) > 1
+        for (gc, gs, gr, gb), (wc, ws, wr, wb) in zip(got, want):
+            np.testing.assert_array_equal(gc, wc)
+            np.testing.assert_array_equal(gs, ws)
+            assert gs.dtype == ws.dtype == np.int32 and (gr, gb) == (wr, wb)
+    seen = []
+    for codes, sids, _, _ in got:
+        assert codes.shape == (R, L)
+        for r in range(R):
+            # reads are separated by one invalid cell; Ns inside a read are
+            # invalid too, so compare the reads' segments between them
+            segs = [s for s in bytes(np.where(codes[r] < 4, codes[r], 9)).split(b"\t") if s]
+            seen += [(int(sids[r]), "".join("ACGT"[c] for c in seg)) for seg in segs]
+    want_segs = [(t, seg) for t, r in tagged for seg in r.split("N") if seg]
+    assert seen == want_segs
+    with pytest.raises(ValueError, match="read_len"):
+        list(tbatch.batch_codes_dense_tagged(iter([(0, "A" * (L + 1))]), R, L))
 
 
 def test_partitioner_is_the_jax_one():

@@ -3,7 +3,8 @@
 A fresh interpreter (this test process has jax loaded by conftest)
 imports every module of the port, counts a 2-read FASTA on the CPU on one
 device, on a 2-shard per-batch mesh and on a 2-shard streaming mesh, and
-with the HT engine on one device and the mesh, and
+with the HT engine on one device and the mesh, runs multiseq on one device
+and on the streaming mesh, and
 finds no jax, jaxlib, triton, fastkmer_tpu, fastkmer_tpu.* or root
 benchmarks module.  A second check reads the sources: no module of the port
 and not chip_smoke.py names fastkmer_tpu, jax or the root benchmarks package
@@ -27,6 +28,9 @@ import fastkmer_tpu_torch
 from fastkmer_tpu_torch import api, cli, config, debug, pipeline
 from fastkmer_tpu_torch.core import bits, tbits
 from fastkmer_tpu_torch.ingest import batch, fasta, native, prefetch
+from fastkmer_tpu_torch.multiseq import distances as ms_distances
+from fastkmer_tpu_torch.multiseq import distributed as ms_distributed
+from fastkmer_tpu_torch.multiseq import pipeline as ms_pipeline
 from fastkmer_tpu_torch.ops import (binhash, count_hash, count_sort, cuda_extract, cuda_sort,
                                     extract, superkmer, windows)
 from fastkmer_tpu_torch.output import manifest, writer
@@ -34,8 +38,9 @@ from fastkmer_tpu_torch.output import native as out_native
 from fastkmer_tpu_torch.parallel import driver, exchange, partitioner, stream
 from fastkmer_tpu_torch.utils import cudabuild, nativebuild, timing
 from fastkmer_tpu_torch.benchmarks import (compact_probe, cuda_bitonic_merge, cuda_probe,
-                                           e2e_file, ht_vs_sort, primitives, resume_merge_probe,
-                                           roofline, split_merge_probe)
+                                           distance_probe, e2e_file, ht_vs_sort, multiseq_probe,
+                                           primitives, resume_merge_probe, roofline,
+                                           split_merge_probe)
 
 fa = sys.argv[1]
 with open(fa, "w") as f:
@@ -51,6 +56,14 @@ for ht in (api.count_kmers(fa, k=13, m=5, bins=16, device="cpu", use_ht=True),
            api.count_kmers_distributed(fa, n_devices=2, k=13, m=5, bins=16, device="cpu",
                                        use_ht=True, reads_per_batch=4, read_len=64)):
     assert (ht.words == res.words).all() and (ht.counts == res.counts).all()
+ms_cfg = ms_pipeline.MultiseqConfig(dataset=fa, output_directory="", k=13, m=5, max_b=16,
+                                    write=False, reads_per_batch=4, read_len=64,
+                                    distance_measure="kld_log2")
+ms = ms_pipeline.execute_multiseq_job(ms_cfg, verbose=False, device="cpu")
+assert ms.sequence_names == ["a", "b"] and ms.n_instances == res.n_instances, ms
+ms_mesh = ms_distributed.execute_multiseq_job_distributed(ms_cfg, exchange.make_mesh(2, "cpu"),
+                                                          verbose=False)
+assert (ms_mesh.words == ms.words).all() and ms_mesh.distances == ms.distances
 parts = [(res.words[:2], res.counts[:2], res.bins[:2]), (res.words[1:], res.counts[1:], res.bins[1:])]
 merged = pipeline.merge_partials(parts, 1)
 assert merged[0].shape[0] == res.words.shape[0]

@@ -4,8 +4,8 @@ on a JAX mesh of 8 virtual CPU devices: the same table (words, counts,
 bins), the same merge windows, and equal ``exchange_bytes``,
 ``n_dedup_batches``, ``n_retries``, ``cap`` and ``cap_d``, through the
 raw and dedup transports, the adaptive controller, spills, window
-retries, the sync-free feed and the zero sequence lane of k % 16 == 0.
-Integer outputs, so the tolerance is bit-equality."""
+retries, the sync-free feed, the zero sequence lane of k % 16 == 0 and a
+sequence lane of real ids (multiseq's).  Integer outputs, so the tolerance is bit-equality."""
 
 import numpy as np
 import pytest
@@ -18,6 +18,7 @@ import jax  # noqa: E402
 from fastkmer_tpu.parallel import exchange as jx  # noqa: E402
 from fastkmer_tpu.parallel import partitioner as jpart  # noqa: E402
 from fastkmer_tpu.parallel import stream as jstream  # noqa: E402
+from fastkmer_tpu_torch.core.bits import num_words  # noqa: E402
 from fastkmer_tpu_torch.parallel import exchange as tx  # noqa: E402
 from fastkmer_tpu_torch.parallel import stream as tstream  # noqa: E402
 
@@ -148,3 +149,31 @@ def test_k_multiple_of_16_needs_the_seq_lane(meshes):
     with pytest.raises(ValueError, match="k % 16 != 0"):
         tstream.DistributedCounter(tmesh, 32, 9, B, cap=64, acc_cap=1 << 14,
                                    owner_map=jpart.hash_owner_map(B, N_SHARDS))
+
+
+@pytest.mark.parametrize("k,m,prededup", [(28, 10, True), (28, 10, False), (32, 9, None)])
+def test_seq_lane_with_real_ids_matches_jax(meshes, k, m, prededup):
+    """The seq lane with real ids (0-2 per read, as multiseq feeds it),
+    through the dedup transport, the raw one and the adaptive controller:
+    the JAX counter's (k-mer, seq) table, ``exchange_bytes`` and dedup
+    batches; rows of one k-mer ascend by sequence id."""
+    rng = np.random.default_rng(67 + k)
+    batches = [(dup_heavy_reads(rng, 32, 100), rng.integers(0, 3, size=32).astype(np.int32))
+               for _ in range(4)]
+    owner = jpart.hash_owner_map(B, N_SHARDS)
+    kw = dict(cap=2048, acc_cap=1 << 14, with_seq=True, prededup=prededup)
+    jctr = jstream.DistributedCounter(meshes[0], k, m, B, owner_map=owner, **kw)
+    tctr = tstream.DistributedCounter(meshes[1], k, m, B, owner_map=owner, **kw)
+    for ctr in (jctr, tctr):
+        for reads, sids in batches:
+            ctr.feed(to_batch(reads, 100), n_reads=len(reads), seq_ids=sids.copy())
+    want, got = jctr.finalize(), tctr.finalize()
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    for f in ("exchange_bytes", "n_dedup_batches", "n_retries", "cap_d"):
+        assert getattr(tctr, f) == getattr(jctr, f), f
+    assert (tctr.n_dedup_batches == 4) == (prededup is True)
+    W = num_words(k)
+    same = np.all(got[0][1:, :W] == got[0][:-1, :W], axis=1)
+    assert same.any() and (got[0][1:, W][same] > got[0][:-1, W][same]).all()
+    assert set(np.unique(got[0][:, W]).tolist()) == {0, 1, 2}
