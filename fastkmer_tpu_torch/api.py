@@ -77,19 +77,26 @@ def count_kmers_distributed(
     library form of the ``--mesh`` CLI).
 
     ``n_devices`` defaults to the visible CUDA devices (1 on the CPU); on
-    CUDA shard i lives on ``cuda:{i % device_count()}``.  ``streaming``
+    CUDA shard i lives on ``cuda:{i % device_count()}``.  Under an
+    initialized process group of p > 1 ranks (``parallel.multihost``)
+    ``n_devices`` is the global shard count (default p), n_devices / p on
+    each rank's device; each rank gets its own shards' table and writes
+    its own bins.  ``streaming``
     None/True runs the streaming counter (tables stay on the devices across
     batches); ``streaming=False`` the per-batch k-mer transport.
     ``prededup``: the streaming counter's dedup transport (None adaptive).
     ``use_custom_partitioner``: sampled LPT bin placement.
     ``checkpoint_dir``, ``checkpoint_interval`` and ``keep_table`` as in
     count_kmers.  Returns ``parallel.driver.DistributedResult``."""
-    from .parallel import driver, exchange
+    from .parallel import driver, multihost
 
     dev = resolve_device(device)
+    p = multihost.world_size()
     if n_devices is None:
-        n_devices = torch.cuda.device_count() if dev.type == "cuda" else 1
-    mesh = exchange.make_mesh(n_devices, dev)
+        n_devices = p if p > 1 else (torch.cuda.device_count() if dev.type == "cuda" else 1)
+    if n_devices % p:
+        raise ValueError(f"{n_devices} shards do not split over {p} ranks")
+    mesh = multihost.init_global_mesh(n_devices // p, dev)
     cfg = JobConfig(
         dataset=dataset,
         output_directory=output_directory or "",

@@ -20,15 +20,25 @@ switches to multisequence counting with pairwise distances under
 on the streaming mesh), with the same positionals.  A flag that has no
 effect on the selected path raises, as in the JAX CLI.
 
+Under a launcher's environment (torchrun, or ``RANK``, ``WORLD_SIZE``,
+``MASTER_ADDR``, ``MASTER_PORT``) a ``--mesh N`` run joins its process
+group (``parallel.multihost``): N is then the global shard count, N/p on
+each rank's card, every rank writes its own bins into the shared output
+directory, and its ``--stats-json``, ``--checkpoint-dir`` and
+``--trace-dir`` get its rank (``<path>.rank<r>``, ``<dir>/rank<r>``).
+
     python -m fastkmer_tpu_torch.cli 28 10 3 512 0 0 in.fa out/ run_ 1 0 0
     python -m fastkmer_tpu_torch.cli 28 10 3 512 0 0 in.fa out/ run_ 1 0 1 4 --mesh 4
     python -m fastkmer_tpu_torch.cli 28 10 3 512 0 0 in.fa out/ run_ 1 0 0 --multiseq
+    torchrun --nproc-per-node 2 -m fastkmer_tpu_torch.cli 28 10 3 512 0 0 in.fa out/ run_ \
+        1 0 1 4 --mesh 4
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 
 from .config import JobConfig
@@ -120,14 +130,66 @@ def _check_flags(args) -> None:
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     _check_flags(args)
-    # one profiling hook around the whole job, as in the JAX CLI
-    with maybe_profile(args.trace_dir):
-        summary = _run_multiseq(args) if args.multiseq else _run(args)
+    joined = args.mesh > 1 and _join_ranks(args)
+    try:
+        # one profiling hook around the whole job, as in the JAX CLI
+        with maybe_profile(args.trace_dir):
+            summary = _run_multiseq(args) if args.multiseq else _run(args)
+    finally:
+        if joined:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
     print(json.dumps(summary, indent=2))
     if args.stats_json:
         with open(args.stats_json, "w") as f:
             json.dump(summary, f, indent=2)
     return 0
+
+
+def _join_ranks(args) -> bool:
+    """Join the launcher's process group, if there is one: then --mesh is
+    the global shard count and the rank's own paths get its rank.  Returns
+    whether this call created the group."""
+    import torch.distributed as dist
+
+    from .parallel import multihost
+
+    if dist.is_initialized():
+        return False
+    multihost.init_distributed(device=args.device)
+    p = multihost.world_size()
+    if p == 1:
+        return False
+    if args.mesh % p:
+        dist.destroy_process_group()
+        raise ValueError(f"--mesh {args.mesh} does not split over {p} ranks")
+    r = multihost.rank()
+    if args.stats_json:
+        args.stats_json = f"{args.stats_json}.rank{r}"
+    if args.checkpoint_dir:
+        args.checkpoint_dir = os.path.join(args.checkpoint_dir, f"rank{r}")
+    if args.trace_dir:
+        args.trace_dir = os.path.join(args.trace_dir, f"rank{r}")
+    return True
+
+
+def _mesh(args):
+    """The --mesh N shards: N/p on this rank over p ranks."""
+    from .parallel import multihost
+
+    return multihost.init_global_mesh(args.mesh // multihost.world_size(), args.device)
+
+
+def _ranks(mesh) -> dict:
+    """The summary's multi-rank fields: this rank, the world, the backend,
+    how the exchange reaches the backend and the rank's collectives."""
+    if mesh.world == 1:
+        return {}
+    c = mesh.comm
+    return {"rank": mesh.rank, "world": mesh.world, "backend": c.backend,
+            "exchange_staging": c.staging,
+            "collectives": {"seconds": c.seconds, "calls": c.calls, "bytes": c.bytes}}
 
 
 def _common(args) -> dict:
@@ -158,9 +220,8 @@ def _run_multiseq(args) -> dict:
     prededup = {"auto": None, "on": True, "off": False}[args.prededup]
     if args.mesh > 1:
         from .multiseq.distributed import execute_multiseq_job_distributed
-        from .parallel import exchange
 
-        mesh = exchange.make_mesh(args.mesh, args.device)
+        mesh = _mesh(args)
         res = execute_multiseq_job_distributed(
             cfg, mesh, checkpoint_dir=args.checkpoint_dir,
             checkpoint_interval=args.checkpoint_interval, unique_ub=args.unique_ub,
@@ -195,9 +256,9 @@ def _run(args) -> dict:
     cfg = JobConfig(**_common(args), use_ht=bool(args.useHT))
     prededup = {"auto": None, "on": True, "off": False}[args.prededup]
     if args.mesh > 1:
-        from .parallel import driver, exchange
+        from .parallel import driver
 
-        mesh = exchange.make_mesh(args.mesh, args.device)
+        mesh = _mesh(args)
         res = driver.execute_job_distributed(
             cfg, mesh, smer_transport=args.smer_transport,
             unique_ub=args.unique_ub, prededup=prededup,
@@ -211,6 +272,7 @@ def _run(args) -> dict:
             "balance": res.balance,
             "placement": [str(d) for d in mesh.devices],
             "n_dedup_batches": res.n_dedup_batches,
+            **_ranks(mesh),
         }
     else:
         res = execute_job(cfg, unique_ub=args.unique_ub, prededup=prededup,

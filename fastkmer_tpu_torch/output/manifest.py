@@ -6,6 +6,9 @@ the sha256 of every file and a table checksum, so that ``verify_output``
 can check a directory's completeness and content instead of inferring it
 from "all B files appeared".  The JSON is the JAX package's, key for key.
 
+A multi-rank run writes one ``write_manifest_shard`` per rank (the bins
+that rank wrote) and rank 0 unites them with ``merge_manifest_shards``.
+
 ``write_table_sidecar`` keeps the final table beside the bin files, so a
 repair rewrites damaged bins without recounting.  ``BatchCheckpointer``
 persists partial tables with a cursor, so an interrupted job resumes from
@@ -68,6 +71,85 @@ def write_manifest(out_dir: str, cfg_dict: dict, words, counts, bins,
     path = os.path.join(out_dir, MANIFEST)
     with open(path, "w") as f:
         json.dump(manifest, f, indent=2)
+    return path
+
+
+def write_manifest_shard(out_dir: str, cfg_dict: dict, words, counts, bins,
+                         process_index: int,
+                         bin_hashes: dict | None = None,
+                         extra_files: dict | None = None,
+                         binary: bool = False) -> str:
+    """A rank's manifest shard: only the bins it wrote (its shards'
+    disjoint bin set), with their hashes and its extra artifacts; rank 0
+    unites the shards with ``merge_manifest_shards`` after a barrier."""
+    os.makedirs(out_dir, exist_ok=True)
+    uniq, idx = np.unique(bins, return_counts=True) if bins.size else ([], [])
+    shard = {
+        "config": cfg_dict,
+        "process_index": process_index,
+        "n_unique": int(words.shape[0]),
+        "n_instances": int(counts.sum()),
+        "checksum": table_checksum(words, counts),
+        "bins": {int(b): int(c) for b, c in zip(uniq, idx)},
+    }
+    if binary:
+        shard["binary"] = True
+    if bin_hashes is not None:
+        shard["bin_sha256"] = {int(b): h for b, h in bin_hashes.items()}
+    if extra_files:
+        shard["extra_files"] = extra_files
+    path = os.path.join(out_dir, f"manifest.part{process_index}.json")
+    tmp = path + ".tmp"
+    with open(tmp, "w") as f:
+        json.dump(shard, f, indent=2)
+    os.replace(tmp, path)
+    return path
+
+
+def merge_manifest_shards(out_dir: str, n_processes: int) -> str:
+    """Unite ``n_processes`` manifest shards into the directory manifest.
+    The bin sets must be disjoint; the checksum hashes the shards' table
+    checksums in rank order (no rank holds the whole table, so the
+    directory cannot be repaired from a sidecar)."""
+    shards = []
+    for pidx in range(n_processes):
+        with open(os.path.join(out_dir, f"manifest.part{pidx}.json")) as f:
+            shards.append(json.load(f))
+    bins: dict = {}
+    bin_hashes: dict = {}
+    extra_files: dict = {}
+    for s in shards:
+        overlap = set(bins) & set(s["bins"])
+        if overlap:
+            raise RuntimeError(
+                f"manifest shards claim the same bins {sorted(overlap)[:8]}; "
+                "per-process bin sets must be disjoint"
+            )
+        bins.update(s["bins"])
+        bin_hashes.update(s.get("bin_sha256", {}))
+        extra_files.update(s.get("extra_files", {}))
+    h = hashlib.sha256()
+    for s in shards:
+        h.update(s["checksum"].encode())
+    manifest = {
+        "config": shards[0]["config"],
+        "n_unique": sum(s["n_unique"] for s in shards),
+        "n_instances": sum(s["n_instances"] for s in shards),
+        "checksum": h.hexdigest(),
+        "shards": [s["checksum"] for s in shards],
+        "bins": {int(b): int(c) for b, c in bins.items()},
+    }
+    if any(s.get("binary") for s in shards):
+        manifest["binary"] = True
+    if bin_hashes:
+        manifest["bin_sha256"] = {int(b): hh for b, hh in bin_hashes.items()}
+    if extra_files:
+        manifest["extra_files"] = extra_files
+    path = os.path.join(out_dir, MANIFEST)
+    tmp = path + ".tmp"
+    with open(tmp, "w") as f:
+        json.dump(manifest, f, indent=2)
+    os.replace(tmp, path)
     return path
 
 

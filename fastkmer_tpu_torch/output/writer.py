@@ -94,6 +94,19 @@ def _clean_stale_outputs(out_dir: str) -> None:
             os.remove(os.path.join(out_dir, name))
 
 
+def clean_output_dir(out_dir: str) -> None:
+    """Remove bin files, binary outputs and manifest shards from a shared
+    output directory.  A multi-rank run calls this once (rank 0, before a
+    barrier) instead of per-rank ``clean=True`` writes, which would remove
+    what the other ranks already wrote."""
+    os.makedirs(out_dir, exist_ok=True)
+    for name in os.listdir(out_dir):
+        if _is_stale_output(name) or (
+            name.startswith("manifest.part") and name.endswith(".json")
+        ):
+            os.remove(os.path.join(out_dir, name))
+
+
 def _format_lines(words: np.ndarray, counts: np.ndarray, k: int) -> bytes:
     from ..ingest import native
 
@@ -105,15 +118,28 @@ def _format_lines(words: np.ndarray, counts: np.ndarray, k: int) -> bytes:
     )
 
 
+def write_binary(out_dir: str, words: np.ndarray, counts: np.ndarray, bins: np.ndarray,
+                 k: int, name: str = "counts.npz", clean: bool = True) -> str:
+    """Binary output (enableKryo=1): the npz in place of the reference's
+    Kryo variant.  A multi-rank writer passes its own ``name`` shard
+    (``counts.part<r>.npz``; the shards' bins are disjoint and their union
+    is the table) with ``clean=False``, rank 0 having cleaned the shared
+    directory once (clean_output_dir).  ``clean`` removes stale bin files
+    and npz artifacts of an earlier run, as in write_bin_files."""
+    os.makedirs(out_dir, exist_ok=True)
+    if clean:
+        _clean_stale_outputs(out_dir)
+    path = os.path.join(out_dir, name)
+    np.savez_compressed(path, words=words, counts=counts, bins=bins, k=np.int32(k))
+    return path
+
+
 def write_binary_with_manifest(out_dir: str, cfg_dict: dict, words, counts,
                                bins, k: int, extra_files: dict | None = None) -> str:
     """Binary output (enableKryo=1): counts.npz plus a binary-flagged
     manifest whose extra_files carry the npz hash and any caller extras
     ({name: sha256} of sibling artifacts, e.g. those a repair keeps)."""
-    os.makedirs(out_dir, exist_ok=True)
-    _clean_stale_outputs(out_dir)
-    path = os.path.join(out_dir, "counts.npz")
-    np.savez_compressed(path, words=words, counts=counts, bins=bins, k=np.int32(k))
+    path = write_binary(out_dir, words, counts, bins, k)
     files = dict(extra_files or {})
     files["counts.npz"] = manifest_mod.file_sha256(path)
     manifest_mod.write_manifest(

@@ -21,6 +21,13 @@ job.  ``checkpoint_dir`` persists the streaming counter's spills, or the
 per-batch path's compacted parts, every ``checkpoint_interval`` batches;
 a forced ``prededup`` off the streaming path raises as it does in the JAX
 package.
+
+Over several ranks (``multihost.init_global_mesh``) every rank reads the
+whole file and feeds its round-robin stripe of R/p-row batches, padded to
+lockstep; the histograms, drop and collision counters and resume cursors
+are reduced over the ranks, so every rank decides alike; each rank writes
+its own shards' bins into the shared directory with a manifest shard, and
+rank 0 merges the shards.  ``checkpoint_dir`` is then the rank's own.
 """
 
 from __future__ import annotations
@@ -36,9 +43,10 @@ from ..ingest import batch as batching
 from ..ingest.prefetch import prefetched
 from ..ops import count_hash, count_sort
 from ..output import manifest as manifest_mod
+from ..output import writer
 from ..utils.timing import StageTimer, maybe_profile
 from ..pipeline import _span
-from . import exchange, partitioner, stream
+from . import exchange, multihost, partitioner, stream
 
 
 class DistributedResult(NamedTuple):
@@ -57,6 +65,39 @@ class DistributedResult(NamedTuple):
     exchange_cap: int = 0  # the per-(source, destination) cap of the last step
     exchange_retries: int = 0  # per batch: batches re-run at a doubled cap;
     # streaming: merge windows replayed at a doubled cap
+
+
+def _write_output(cfg: JobConfig, mesh: exchange.Mesh, words, counts, bins,
+                  keep_table: bool) -> None:
+    """The single-device job's output in one process.  Over p ranks each
+    rank holds only its shards' disjoint bins, so each writes only those
+    into the shared directory, never cleaning the others' files: rank 0
+    cleans once, a barrier orders the clean before any write, every rank
+    writes its bins (or its counts.part<r>.npz under enableKryo) and its
+    manifest shard, and after a second barrier rank 0 merges the shards."""
+    if mesh.world == 1:
+        pipeline.write_output(cfg, words, counts, bins, keep_table=keep_table)
+        return
+    comm, r = mesh.comm, mesh.rank
+    if r == 0:
+        writer.clean_output_dir(cfg.output_dir)
+    comm.barrier("clean_output")
+    hashes = extra = None
+    if cfg.use_kryo_serializer:
+        shard_name = f"counts.part{r}.npz"
+        path = writer.write_binary(cfg.output_dir, words, counts, bins, cfg.k,
+                                   name=shard_name, clean=False)
+        extra = {shard_name: manifest_mod.file_sha256(path)}
+    else:
+        hashes = writer.write_bin_files(cfg.output_dir, words, counts, bins, cfg.k,
+                                        eof_sentinel=not cfg.use_ht, clean=False)
+    manifest_mod.write_manifest_shard(
+        cfg.output_dir, pipeline.dataclasses_dict(cfg), words, counts, bins, r,
+        bin_hashes=hashes, extra_files=extra, binary=cfg.use_kryo_serializer,
+    )
+    comm.barrier("write_output")
+    if r == 0:
+        manifest_mod.merge_manifest_shards(cfg.output_dir, mesh.world)
 
 
 def execute_job_distributed(
@@ -90,7 +131,13 @@ def execute_job_distributed(
     per-(source, destination) capacity.  ``checkpoint_dir`` makes the run
     resumable (checkpoints every ``checkpoint_interval`` batches, emptied
     when the run completes), ``keep_table`` writes the table.npz sidecar,
-    ``trace_dir`` wraps the run in a torch.profiler trace."""
+    ``trace_dir`` wraps the run in a torch.profiler trace.
+
+    Over several ranks every rank calls this with the same arguments (but
+    its own ``checkpoint_dir``) and gets its own shards' table; the
+    result's ``exchange_bytes`` and ``n_dedup_batches`` are the same on
+    every rank, and ``timings["cross_rank"]`` holds the rank's seconds in
+    collectives.  ``keep_table`` raises there: no rank holds the table."""
     with maybe_profile(trace_dir):
         return _execute_job_distributed(
             cfg, mesh, cap, smer_transport, smax, verbose, streaming, acc_cap, fanin,
@@ -115,21 +162,32 @@ def _execute_job_distributed(cfg: JobConfig, mesh: exchange.Mesh, cap: int | Non
         )
     timer = StageTimer()
     n = mesh.size
+    p = mesh.world
     devs = mesh.devices
     k, m, b = cfg.k, cfg.m, cfg.b
+    if keep_table and p > 1:
+        raise NotImplementedError(
+            "keep_table writes one full-table sidecar; on a multi-host mesh "
+            "each process holds only its chips' bins — run keep_table on a "
+            "single-process mesh"
+        )
     if verbose:
         print(cfg.describe())
-        print(f"mesh: {n} shards on {', '.join(map(str, devs))}, "
+        print(f"mesh: {n} shards, {', '.join(map(str, devs))} on rank {mesh.rank} of {p}, "
               f"transport={'super-k-mer' if smer_transport else 'k-mer'}")
 
     R, L = cfg.reads_per_batch, cfg.read_len
-    if R % n:
-        R = -(-R // n) * n  # rows divide over the shards
+    if R % (n * p):
+        R = -(-R // (n * p)) * (n * p)  # rows divide over the shards and the ranks' stripes
 
     def batches():
-        return batching.batch_file(cfg.dataset, cfg.sequence_type, k, R, L)
+        # over p ranks each reads the file's R/p-row batches round-robin,
+        # padded so that every rank takes the same number of steps
+        it = batching.batch_file(cfg.dataset, cfg.sequence_type, k, R // p, L)
+        return multihost.stripe_batches_padded(it, R // p, L, p, mesh.rank) if p > 1 else it
 
-    # --- optional LPT pre-pass on a sample of batches ---
+    # --- optional LPT pre-pass on a sample of batches.  Lockstep: ``est``
+    # sums each histogram over the ranks, so every rank places bins alike
     hist = np.zeros(b, dtype=np.int64)
     if cfg.use_custom_partitioner:
         est = exchange.estimate_bin_sizes(mesh, k, m, b)
@@ -165,8 +223,9 @@ def _execute_job_distributed(cfg: JobConfig, mesh: exchange.Mesh, cap: int | Non
     ckpt = (manifest_mod.BatchCheckpointer(checkpoint_dir, checkpoint_interval)
             if checkpoint_dir else None)
     if streaming:
-        return _count_streaming(cfg, mesh, timer, batches, R, positions, cap, acc_cap, fanin,
-                                owner_map, balance, unique_ub, prededup, ckpt, keep_table)
+        res = _count_streaming(cfg, mesh, timer, batches, R // p, positions, cap, acc_cap,
+                               fanin, owner_map, balance, unique_ub, prededup, ckpt, keep_table)
+        return _with_cross_rank(res, mesh)
 
     def build_step(c: int):
         if smer_transport:
@@ -192,7 +251,7 @@ def _execute_job_distributed(cfg: JobConfig, mesh: exchange.Mesh, cap: int | Non
     skip = persisted = 0
     new_parts: list = []  # parts since the last checkpoint, all shards
     if ckpt is not None:
-        skip = ckpt.completed_batches()
+        skip = _resume_cursor(ckpt, mesh)
         for part in ckpt.load_parts():
             _split_part_by_owner(part, owner_map, per_chip_parts)
             persisted += 1
@@ -206,7 +265,8 @@ def _execute_job_distributed(cfg: JobConfig, mesh: exchange.Mesh, cap: int | Non
             shards = exchange.shard_batch(mesh, codes)
             sc = step(shards)
         # batches are independent here, so overflow recovery is a straight
-        # resize-and-retry of the same shards
+        # resize-and-retry of the same shards.  Lockstep: sc.dropped is the
+        # sum over the ranks, so every rank retries the same batch
         while not sync_free and int(sc.dropped):
             if cap >= cap_limit:
                 raise RuntimeError(
@@ -246,6 +306,7 @@ def _execute_job_distributed(cfg: JobConfig, mesh: exchange.Mesh, cap: int | Non
                 persisted += len(new_parts)
                 new_parts = []
     _check_dropped(dropped_total, cap)
+    # lockstep: the collision flags are summed over the ranks, so every rank raises
     if collision_total is not None and int(collision_total):
         raise count_hash.FingerprintCollision(
             "64-bit fingerprint collision on the mesh; re-run with useHT=0"
@@ -272,23 +333,42 @@ def _execute_job_distributed(cfg: JobConfig, mesh: exchange.Mesh, cap: int | Non
 
     if cfg.write:
         with timer.span("write_output"):
-            pipeline.write_output(cfg, words, counts, bins, keep_table=keep_table)
+            _write_output(cfg, mesh, words, counts, bins, keep_table)
     if ckpt is not None:
         ckpt.clear()  # the run completed
-    return DistributedResult(
+    return _with_cross_rank(DistributedResult(
         words, counts, bins, int(counts.sum()), n_bases, n_reads,
         owner_map, balance, xbytes, timer.as_dict(),
         n_batches=n_batches, exchange_cap=cap, exchange_retries=retries,
-    )
+    ), mesh)
+
+
+def _with_cross_rank(res: DistributedResult, mesh: exchange.Mesh) -> DistributedResult:
+    """Over several ranks, add the rank's seconds in collectives to the
+    timings as ``cross_rank``."""
+    if mesh.world == 1:
+        return res
+    return res._replace(timings={**res.timings, "cross_rank": mesh.comm.seconds})
+
+
+def _resume_cursor(ckpt, mesh: exchange.Mesh) -> int:
+    """The batch to resume from.  Lockstep: over several ranks the fleet
+    minimum, with every rank's checkpoint rolled back to it (a crash can
+    land between the ranks' cursor writes)."""
+    skip = ckpt.completed_batches()
+    if mesh.world > 1:
+        skip = ckpt.rollback_to(multihost.agree_min(skip, mesh.comm))
+    return skip
 
 
 def _count_streaming(cfg: JobConfig, mesh: exchange.Mesh, timer: StageTimer, batches,
                      R: int, positions: int, cap: int, acc_cap: int | None, fanin: int,
                      owner_map: np.ndarray, balance: dict, unique_ub: int | None,
                      prededup: bool | None, ckpt, keep_table: bool) -> DistributedResult:
-    """The streaming branch of the JAX driver (driver.py:237-315).  With a
-    checkpointer, a forced spill every ``ckpt.interval`` batches persists
-    the shards' tables; a resume loads them back and skips their batches."""
+    """The streaming branch of the JAX driver (driver.py:237-315) on this
+    rank's R-row batches.  With a checkpointer, a forced spill every
+    ``ckpt.interval`` batches persists the shards' tables; a resume loads
+    them back and skips their batches."""
     # k % 16 == 0: a constant-zero seq lane keeps the sentinel unambiguous
     flagged = not count_sort.sentinel_safe_for(cfg.k)
     if acc_cap is None:
@@ -301,7 +381,7 @@ def _count_streaming(cfg: JobConfig, mesh: exchange.Mesh, timer: StageTimer, bat
     zero_sids = np.zeros(R, np.int32) if flagged else None
     skip = persisted = 0
     if ckpt is not None:
-        skip = ckpt.completed_batches()
+        skip = _resume_cursor(ckpt, mesh)
         ctr.host_spills.extend(ckpt.load_parts())
         persisted = len(ctr.host_spills)
     n_batches = 0
@@ -324,7 +404,7 @@ def _count_streaming(cfg: JobConfig, mesh: exchange.Mesh, timer: StageTimer, bat
             words = words[:, : num_words(cfg.k)]  # drop the zero lane
     if cfg.write:
         with timer.span("write_output"):
-            pipeline.write_output(cfg, words, counts, bins, keep_table=keep_table)
+            _write_output(cfg, mesh, words, counts, bins, keep_table)
     if ckpt is not None:
         ckpt.clear()  # the run completed
     return DistributedResult(
@@ -349,7 +429,8 @@ def _split_part_by_owner(part, owner_map: np.ndarray, out: dict) -> None:
 def _check_dropped(dropped_total, cap: int) -> None:
     """Sync-free (unique_ub) feed: one read of the run's accumulated
     exchange-drop counter; any drop is fatal (the batches are gone, so no
-    retry is possible)."""
+    retry is possible).  Lockstep: each step's counter is the sum over the
+    ranks, so every rank raises alike."""
     if dropped_total is None:
         return
     total = int(dropped_total)

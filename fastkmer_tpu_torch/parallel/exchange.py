@@ -1,13 +1,21 @@
-"""Distributed bin exchange on a single-process device mesh — the port of
+"""Distributed bin exchange on a device mesh — the port of
 ``fastkmer_tpu.parallel.exchange``.
 
-The JAX mesh path is single-controller: one process holds a mesh of n
-devices and runs each step through ``shard_map``.  The port keeps that
-shape.  A ``Mesh`` is an ordered list of n torch devices, a batch is n
-contiguous row stripes (``shard_batch``), and a step runs each shard's work
-in turn.  The all-to-all is block copies between the shards' [n·cap] send
-buffers; when several shards share one card (``make_mesh`` places shard i
-on ``cuda:{i % device_count()}``) those copies stay in that card's memory.
+The JAX mesh path is single-controller within a process: each process
+holds its devices and runs each step through ``shard_map``.  The port keeps
+that shape.  A ``Mesh`` is this process's ordered list of torch devices,
+its rank and the world size; global shard ``rank * n_local + j`` is its
+j-th (JAX's process-major device order), and the owner map indexes global
+shards.  A batch (this rank's stripe of the global batch) is n_local
+contiguous row stripes (``shard_batch``), and a step runs each local
+shard's work in turn.  Within one process the all-to-all is block copies
+between the shards' [n·cap] send buffers; when several shards share one
+card (``make_mesh`` places shard i on ``cuda:{i % device_count()}``) those
+copies stay in that card's memory.  Across ranks it is one
+``all_to_all_single`` per lane dtype (``multihost.Collectives``), and the
+step's drop and collision counters and the pre-pass histogram are summed
+over the ranks, as JAX's psums do.  With one rank every function is the
+single-process one.
 
 One step, per shard: the full-mode extract (the CUDA kernel for a CUDA
 shard, its plain version on the CPU) -> owner lookup -> ``route_by_owner``
@@ -30,19 +38,35 @@ import torch
 from ..core.bits import num_words
 from ..ops import binhash, count_hash, count_sort, cuda_extract, superkmer
 from ..pipeline import resolve_device, table_to_host
+from . import multihost
 
 AXIS = "data"
 
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """An ordered list of devices along the one mesh axis ``AXIS``."""
+    """This rank's ordered devices along the one mesh axis ``AXIS``, of a
+    global mesh of ``world`` ranks; ``comm`` runs the cross-rank
+    collectives (None in one process)."""
 
     devices: tuple[torch.device, ...]
+    rank: int = 0
+    world: int = 1
+    comm: multihost.Collectives | None = None
+
+    @property
+    def n_local(self) -> int:
+        return len(self.devices)
 
     @property
     def size(self) -> int:
-        return len(self.devices)
+        """Global shard count."""
+        return self.world * len(self.devices)
+
+    @property
+    def offset(self) -> int:
+        """Global index of this rank's first shard."""
+        return self.rank * len(self.devices)
 
 
 def make_mesh(n: int, device="cuda") -> Mesh:
@@ -68,9 +92,12 @@ class ShardCounts(NamedTuple):
     is_uniq:  [S] bool
     counts:   [S] int32
     n_valid:  [] counted instances
-    dropped:  [] total rows dropped by capacity overflow, on the first shard's device
-    collision: [] int32 shards that found a fingerprint collision (HT
-              engine; 0 for the sort engine), on the first shard's device
+    dropped:  [] total rows dropped by capacity overflow over every rank's
+              shards, on the first shard's device
+    collision: [] int32 shards of every rank that found a fingerprint
+              collision (HT engine; 0 for the sort engine), on the first
+              shard's device
+    offset:   global index of the first (local) shard
     """
 
     words: list
@@ -80,6 +107,7 @@ class ShardCounts(NamedTuple):
     n_valid: list
     dropped: torch.Tensor
     collision: torch.Tensor
+    offset: int = 0
 
 
 def route_by_owner(owner: torch.Tensor, valid: torch.Tensor, cols: tuple, n: int, cap: int,
@@ -117,12 +145,38 @@ def route_by_owner(owner: torch.Tensor, valid: torch.Tensor, cols: tuple, n: int
 
 
 def _all_to_all(bufs: list, mesh: Mesh, cap: int) -> list:
-    """bufs[s]: shard s's [n·cap] send lane -> one [n·cap] lane per shard:
-    block s of shard d's lane is block d of shard s's."""
+    """One process: bufs[s]: shard s's [n·cap] send lane -> one [n·cap]
+    lane per shard: block s of shard d's lane is block d of shard s's."""
     return [
         torch.cat([b[d * cap : (d + 1) * cap].to(dev) for b in bufs])
         for d, dev in enumerate(mesh.devices)
     ]
+
+
+def _exchange_ranks(mesh: Mesh, cap: int, send: list) -> list:
+    """Across ranks: send[j]: local shard j's lanes, each [n·cap] with
+    block g bound for global shard g -> recv[i]: local shard i's lanes,
+    block s from global shard s.  One ``all_to_all_single`` per lane dtype
+    moves [rank q, lane, source j, destination i, cap] blocks (the local
+    ones included); the send lanes are released as they are packed."""
+    nl, p = mesh.n_local, mesh.world
+    recv = [[None] * len(send[0]) for _ in range(nl)]
+    groups: dict = {}
+    for i, lane in enumerate(send[0]):
+        groups.setdefault(lane.dtype, []).append(i)
+    for idx in groups.values():
+        first = send[0][idx[0]]
+        pack = torch.empty((p, len(idx), nl, nl, cap), dtype=first.dtype, device=first.device)
+        for a, i in enumerate(idx):
+            for j in range(nl):
+                pack[:, a, j].copy_(send[j][i].view(p, nl, cap))
+                send[j][i] = None
+        got = mesh.comm.all_to_all(pack)  # [source rank, lane, source j, destination i, cap]
+        del pack
+        for a, i in enumerate(idx):
+            for d in range(nl):
+                recv[d][i] = got[:, a, :, d].reshape(-1)
+    return recv
 
 
 def _owner_tables(mesh: Mesh, owner_map: np.ndarray) -> list:
@@ -131,14 +185,17 @@ def _owner_tables(mesh: Mesh, owner_map: np.ndarray) -> list:
 
 
 def _exchange(mesh: Mesh, cap: int, send: list) -> list:
-    """send[s]: shard s's list of routed lanes -> recv[d]: shard d's list
-    of received lanes.  The send lanes are released as they are copied."""
+    """send[s]: local shard s's list of routed lanes -> recv[d]: local
+    shard d's list of received lanes.  The send lanes are released as they
+    are copied."""
+    if mesh.world > 1:
+        return _exchange_ranks(mesh, cap, send)
     per_lane = []
     for i in range(len(send[0])):
         per_lane.append(_all_to_all([s[i] for s in send], mesh, cap))
         for s in send:
             s[i] = None
-    return [[lane[d] for lane in per_lane] for d in range(mesh.size)]
+    return [[lane[d] for lane in per_lane] for d in range(mesh.n_local)]
 
 
 def _count_owned(words: torch.Tensor, valid: torch.Tensor, k: int, m: int, B: int):
@@ -166,11 +223,13 @@ def _count_owned_ht(words: torch.Tensor, valid: torch.Tensor, k: int, m: int, B:
 
 
 def _mesh_step(mesh: Mesh, cap: int, route, count):
-    """step: list of per-shard code tensors -> ShardCounts.  On each shard
-    ``route(s, codes)`` -> (send lanes, n_dropped); then the exchange; then
-    on each owner ``count(received lanes)`` -> _count_owned's tuple.
-    ``count`` empties the lane list once it has read it, so the received
-    lanes are freed before the owner's sort."""
+    """step: list of this rank's per-shard code tensors -> ShardCounts.  On
+    each shard ``route(s, codes)`` -> (send lanes, n_dropped); then the
+    exchange; then on each owner ``count(received lanes)`` ->
+    _count_owned's tuple.  ``count`` empties the lane list once it has read
+    it, so the received lanes are freed before the owner's sort.  The drop
+    and collision totals are summed over the ranks: every rank retries, or
+    raises, on the same batch."""
     dev0 = mesh.devices[0]
     no_collision = torch.zeros((), dtype=torch.int32, device=dev0)
 
@@ -183,16 +242,21 @@ def _mesh_step(mesh: Mesh, cap: int, route, count):
             del lanes
         recv = _exchange(mesh, cap, send)
         per_shard = []
-        for d in range(mesh.size):
+        for d in range(mesh.n_local):
             lanes, recv[d] = recv[d], None
             per_shard.append(count(lanes))
             del lanes
         words, bins, is_uniq, counts, n_valid, colls = map(list, zip(*per_shard))
         collision = no_collision if colls[0] is None else torch.stack(
             [c.to(dev0) for c in colls]).sum(dtype=torch.int32)
+        dropped = torch.stack([d.to(dev0) for d in drops]).sum()
+        if mesh.world > 1:
+            dropped = mesh.comm.reduce(dropped)
+            if colls[0] is not None:
+                collision = mesh.comm.reduce(collision)
         return ShardCounts(
             words=words, bins=bins, is_uniq=is_uniq, counts=counts, n_valid=n_valid,
-            dropped=torch.stack([d.to(dev0) for d in drops]).sum(), collision=collision,
+            dropped=dropped, collision=collision, offset=mesh.offset,
         )
 
     return step
@@ -283,8 +347,9 @@ def exchange_bytes_per_step(n: int, cap: int, k: int, smax: int | None = None) -
 
 
 def estimate_bin_sizes(mesh: Mesh, k: int, m: int, B: int):
-    """fn: list of per-shard code tensors -> int32 [B] global per-bin k-mer
-    counts (on the first shard's device): the sampled LPT pre-pass."""
+    """fn: list of this rank's per-shard code tensors -> int32 [B] global
+    per-bin k-mer counts, summed over the ranks (on the first shard's
+    device): the sampled LPT pre-pass."""
     dev0 = mesh.devices[0]
 
     def est(shards: list) -> torch.Tensor:
@@ -293,16 +358,17 @@ def estimate_bin_sizes(mesh: Mesh, k: int, m: int, B: int):
             ex = cuda_extract.extract_full(codes, k, m, B)
             total += count_sort.bin_histogram(ex.bins, ex.valid, B).to(dev0)
             del ex
-        return total
+        return mesh.comm.reduce(total) if mesh.world > 1 else total
 
     return est
 
 
 def shard_batch(mesh: Mesh, codes: np.ndarray) -> list:
-    """Split a host [R, L] batch into n contiguous row stripes, each on its
-    shard's device.  R must divide by n.  A CPU shard shares the numpy
-    buffer, so the caller must not mutate ``codes`` afterwards."""
-    n = mesh.size
+    """Split a host batch (this rank's [R/p, L] stripe of the global batch,
+    or a per-row vector) into n_local contiguous row stripes, each on its
+    shard's device.  Its rows must divide by n_local.  A CPU shard shares
+    the numpy buffer, so the caller must not mutate ``codes`` afterwards."""
+    n = mesh.n_local
     R = codes.shape[0]
     if R % n:
         raise ValueError(f"{R} rows do not split over {n} shards")
@@ -312,12 +378,14 @@ def shard_batch(mesh: Mesh, codes: np.ndarray) -> list:
 
 
 def compact_shard_counts(sc: ShardCounts, with_chips: bool = False) -> list:
-    """ShardCounts -> per shard (words uint32 [U, W], counts int64, bins
-    int32) of its unique rows, in ascending order.  Compacts on the device
-    and copies only the unique rows to the host.  ``with_chips`` returns
-    (shard index, part) pairs."""
+    """ShardCounts -> per local shard (words uint32 [U, W], counts int64,
+    bins int32) of its unique rows, in ascending order.  Compacts on the
+    device and copies only the unique rows to the host.  ``with_chips``
+    returns (global shard index, part) pairs: this rank's shards only, the
+    counterpart of JAX's addressable shards."""
     out = []
-    for chip, (w, b, u, c) in enumerate(zip(sc.words, sc.bins, sc.is_uniq, sc.counts)):
+    for chip, (w, b, u, c) in enumerate(zip(sc.words, sc.bins, sc.is_uniq, sc.counts),
+                                        sc.offset):
         idx = torch.nonzero(u).squeeze(1)
         part = table_to_host(w[idx], c[idx], b[idx])
         out.append((chip, part) if with_chips else part)

@@ -1,6 +1,6 @@
 """Streaming distributed counter with per-shard device-resident tables —
-the port of ``fastkmer_tpu.parallel.stream`` on the single-process
-``exchange.Mesh``.
+the port of ``fastkmer_tpu.parallel.stream`` on ``exchange.Mesh``, of one
+process or of several ranks.
 
 The per-batch mesh path (parallel.driver with super-k-mer transport) pulls
 every batch's per-shard table to the host.  This counter keeps all
@@ -36,6 +36,13 @@ never silent.
 The merge schedule (fan-in, the power-of-two trigger, spills and window
 retries) is the JAX counter's, so both packages merge the same windows and
 report the same ``exchange_bytes``, ``n_retries`` and ``n_dedup_batches``.
+
+Over several ranks every host decision reads a value reduced over the
+ranks (the probe ratio, the drop counters, the shards' unique counts and
+the overflow totals), and every bound counts global positions, so all
+ranks take the same branch at the same batch and the collectives stay in
+step; ``exchange_bytes`` and ``n_dedup_batches`` are then the same on
+every rank, and each rank's ``finalize`` returns its own shards' table.
 Not carried over, because only ``lax.sort`` or the TPU host link needed
 them: the 64Ki / power-of-two padding of the merge input and the
 asynchronous spill copies (spills here are plain synchronous copies).
@@ -57,9 +64,9 @@ _WT_LIMIT = count_sort.WEIGHT_LIMIT  # int32 run-total wrap guard
 
 
 class AccState(NamedTuple):
-    cols: list  # per shard: W int32 [acc_cap] sentinel-padded unique lanes, sorted
-    wts: list  # per shard: int32 [acc_cap] counts
-    n_unique: torch.Tensor  # [n] int64, first shard's device
+    cols: list  # per local shard: W int32 [acc_cap] sentinel-padded unique lanes, sorted
+    wts: list  # per local shard: int32 [acc_cap] counts
+    n_unique: torch.Tensor  # [n_local] int64, first shard's device
     dropped: torch.Tensor  # [] int64 cumulative exchange overflow, first shard's device
     overflow: torch.Tensor  # [] int64 cumulative accumulator overflow, first shard's device
 
@@ -70,7 +77,7 @@ class _Part(NamedTuple):
     cols:  per shard, W int32 [n·cap] received lanes (sentinel on dead slots)
     wts:   per shard, int32 [n·cap] weights for dedup parts, None for raw
            parts (raw rows weigh 1 where not sentinel)
-    ndrop: [] rows this exchange dropped, summed over the shards
+    ndrop: [] rows this exchange dropped, summed over this rank's shards
     """
 
     cols: list
@@ -132,7 +139,8 @@ class DistributedCounter:
         self.with_seq = with_seq
         self.Wk = num_words(k)  # k-mer words only
         self.W = self.Wk + (1 if with_seq else 0)  # key lanes incl. seq
-        self.n = mesh.size
+        self.n = mesh.size  # global shards
+        self.nl = mesh.n_local
         self.dev0 = mesh.devices[0]
         self.cap = cap
         self.assume_fits = unique_ub is not None
@@ -181,7 +189,7 @@ class DistributedCounter:
                         for _ in range(self.W)) for d in self.mesh.devices],
             wts=[torch.zeros(self.acc_cap, dtype=torch.int32, device=d)
                  for d in self.mesh.devices],
-            n_unique=torch.zeros(self.n, dtype=torch.int64, device=self.dev0),
+            n_unique=torch.zeros(self.nl, dtype=torch.int64, device=self.dev0),
             dropped=zero,
             overflow=zero,
         )
@@ -221,8 +229,8 @@ class DistributedCounter:
     def _exchange_dedup(self, shards: list, sids: list | None):
         """Dedup transport: each shard counts its batch rows (one extra
         W-key sort), then routes (k-mer words, int32 weight) for its
-        distinct rows only.  Also returns the sum of the shards' distinct
-        counts, the adaptive controller's signal."""
+        distinct rows only.  Also returns the sum of this rank's shards'
+        distinct counts, the adaptive controller's signal."""
         send, drops = [], []
         n_u = 0
         for s, codes in enumerate(shards):
@@ -266,7 +274,7 @@ class DistributedCounter:
         pending, self.pending = self.pending, []
         ndrop = torch.stack([p.ndrop for p in pending]).sum()
         cols, wts, n_unique, over = [], [], [], []
-        for d in range(self.n):
+        for d in range(self.nl):
             parts = [(p.cols[d], None if p.wts is None else p.wts[d]) for p in pending]
             for p in pending:  # the shard's part buffers go with its merge
                 p.cols[d] = None
@@ -294,7 +302,9 @@ class DistributedCounter:
     def _ensure_room(self, incoming: int) -> None:
         """Keep the next merge's unique-count bound within acc_cap, spilling
         the accumulator to the host when it cannot absorb the incoming
-        batch.  Conservative bounds avoid device reads in the common case."""
+        batch.  Conservative bounds avoid device reads in the common case.
+        Lockstep: the bounds count global positions and the occupancy is
+        the fullest shard of any rank, so every rank spills together."""
         if self._acc_ub + self._pend_ub + incoming <= self.acc_cap:
             return
         stats = self._stats()  # exact occupancy before deciding to spill
@@ -319,12 +329,16 @@ class DistributedCounter:
     def _consume_probes(self) -> None:
         """Apply the distinct ratios of probe/dedup batches to the
         transport mode and ``cap_d``, each at its dispatch index +
-        PROBE_LAG.  A forced prededup=True uses them for ``cap_d`` only."""
+        PROBE_LAG.  A forced prededup=True uses them for ``cap_d`` only.
+        Lockstep: the distinct count is summed over the ranks, so every
+        rank flips mode and retunes at the same batch."""
         while self._probe_pending:
             consume_at, pos, n_u = self._probe_pending[0]
             if self._batch_i < consume_at:
                 break
             self._probe_pending.pop(0)
+            if self.mesh.world > 1:
+                n_u = int(self.mesh.comm.reduce(torch.tensor([n_u]))[0])
             ratio = n_u / max(pos, 1)
             if self.prededup is None:
                 self._dedup_mode = ratio < self.ENGAGE_BELOW
@@ -342,9 +356,13 @@ class DistributedCounter:
 
     def feed(self, codes: np.ndarray, n_reads: int = 0, n_bases: int = 0,
              seq_ids: np.ndarray | None = None) -> None:
-        """Exchange one [R, L] batch (R divisible by the mesh size).  A CPU
-        shard shares ``codes`` and ``seq_ids``: pass fresh arrays."""
+        """Exchange one batch: this rank's [R/p, L] stripe of a global
+        [R, L] batch (R divisible by the mesh size).  A CPU shard shares
+        ``codes`` and ``seq_ids``: pass fresh arrays.  The capacity and
+        weight bounds count the global batch's positions, as every rank
+        must reach the same decisions."""
         R, L = codes.shape
+        R *= self.mesh.world
         positions = R * max(L - self.k + 1, 0)
         if self._wt_dev + positions > _WT_LIMIT:
             # int32 run-total wrap guard; applies under unique_ub too (it
@@ -415,9 +433,14 @@ class DistributedCounter:
         replay the window's batches, each in its original mode.  The replay
         re-runs the feed's capacity checks, so it may merge sub-windows and
         spill between them; ``self._window`` always holds exactly the
-        replayed prefix, so a nested retry replays a consistent set."""
+        replayed prefix, so a nested retry replays a consistent set.
+        Lockstep: the drops are summed over the ranks, so every rank
+        replays the same windows at the same capacities."""
         while True:
-            drops = torch.stack([p.ndrop for p in self.pending]).tolist()
+            drops = torch.stack([p.ndrop for p in self.pending])
+            if self.mesh.world > 1:
+                drops = self.mesh.comm.reduce(drops)
+            drops = drops.tolist()
             if sum(drops) == 0:
                 return
             # each part's capacity at dispatch is its lane width / n
@@ -457,9 +480,18 @@ class DistributedCounter:
                 self._pend_ub += uniq_charge
 
     def _stats(self) -> dict:
-        """Counters of the merges so far (pending parts excluded): one read."""
-        vals = torch.cat([self.state.n_unique, self.state.dropped[None],
-                          self.state.overflow[None]]).tolist()
+        """Counters of the merges so far (pending parts excluded): one read.
+        ``n_unique`` has an entry per global shard; over several ranks the
+        counters are summed over the ranks (one reduction), so every rank
+        reads the same values and decides alike."""
+        n_unique = self.state.n_unique
+        if self.mesh.world > 1:
+            n_unique = torch.zeros(self.n, dtype=torch.int64, device=self.dev0)
+            n_unique[self.mesh.offset : self.mesh.offset + self.nl] = self.state.n_unique
+        vals = torch.cat([n_unique, self.state.dropped[None], self.state.overflow[None]])
+        if self.mesh.world > 1:
+            vals = self.mesh.comm.reduce(vals)
+        vals = vals.tolist()
         return {"n_unique": vals[: self.n], "dropped": vals[self.n],
                 "overflow": vals[self.n + 1]}
 
@@ -493,10 +525,12 @@ class DistributedCounter:
         self._wt_dev = 0  # spilled weights left the devices (pending is empty)
 
     def _pull_tables(self, stats: dict) -> list:
-        """Per shard with uniques: (words uint32 [u, W], counts int64, bins
-        int32) on the host; bins from the k-mer words (not the seq lane)."""
+        """Per local shard with uniques: (words uint32 [u, W], counts int64,
+        bins int32) on the host; bins from the k-mer words (not the seq
+        lane)."""
         out = []
-        for d, u in enumerate(stats["n_unique"]):
+        for d in range(self.nl):
+            u = stats["n_unique"][self.mesh.offset + d]
             if u == 0:
                 continue
             words = torch.stack([c[:u] for c in self.state.cols[d]], 1)
@@ -505,7 +539,8 @@ class DistributedCounter:
         return out
 
     def finalize(self):
-        """-> (words [U, W], counts [U], bins [U]) merged across shards.
+        """-> (words [U, W], counts [U], bins [U]) merged across this rank's
+        shards.
 
         Bins partition k-mers across shards, so the shards' tables are
         disjoint; a shard may spill the same k-mer twice, so the host merge

@@ -17,7 +17,8 @@ probes' kernels D (the merge path, in place and out of place: keys
 bit-equal to the plain version and to the sorted keys, rows the same
 multiset, also where tiles come wholly from one half) and E (the
 copy and the transpose: bit-equal, 0xFFFFFFFF wrapping to 0, a tile
-count uneven among the persistent CTAs).  No jax is needed, so a machine with a
+count uneven among the persistent CTAs); and the exchange between two
+ranks that share the card, with and without pinned host staging.  No jax is needed, so a machine with a
 card and no jax runs them without the jax-importing conftest:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -525,3 +526,71 @@ def test_device_gram_ignores_tf32(cuda, name):
     want = ms._pair_sums_from_device(gid, seqs.astype(np.int32), counts, S, measure,
                                      device="cpu")
     np.testing.assert_allclose(got, want, rtol=1e-9, atol=1e-9 * np.abs(want).max())
+
+
+_RANK_EXCHANGE = r'''
+import os, sys
+sys.path.insert(0, sys.argv[2])
+import torch
+from fastkmer_tpu_torch.parallel import exchange, multihost
+multihost.init_distributed(device="cuda", timeout_s=60)
+mesh = multihost.init_global_mesh(2, "cuda")
+mesh.comm.staging = sys.argv[1]
+n, cap, lanes = mesh.size, 5, 3
+
+
+def send_of(g):
+    """Global shard g's send lanes: int32 [n * cap] each, from its own seed."""
+    gen = torch.Generator().manual_seed(g)
+    return [torch.randint(-2**31, 2**31 - 1, (n * cap,), generator=gen, dtype=torch.int32)
+            for _ in range(lanes)]
+
+
+everyone = [send_of(g) for g in range(n)]
+send = [[l.to(mesh.devices[0]) for l in everyone[mesh.offset + j]] for j in range(2)]
+recv = exchange._exchange(mesh, cap, send)
+for j in range(2):
+    d = mesh.offset + j
+    for i in range(lanes):
+        want = torch.cat([everyone[s][i][d * cap : (d + 1) * cap] for s in range(n)])
+        assert recv[j][i].device.type == "cuda" and torch.equal(recv[j][i].cpu(), want), (j, i)
+got = mesh.comm.reduce(torch.tensor([mesh.rank + 1, 5 * mesh.rank], device="cuda"), "max")
+assert got.device.type == "cuda" and got.tolist() == [2, 5]
+assert multihost.agree_min(7 - mesh.rank, mesh.comm) == 6
+print("RANK_OK", mesh.rank, flush=True)
+'''
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("staging", ["direct", "host"])
+def test_exchange_across_ranks_on_cuda(cuda, tmp_path, staging):
+    """Two ranks of two shards on the card (gloo: they share it): the
+    exchange between ranks puts block d of global source s in destination
+    d's lane at s, whether gloo takes the CUDA tensors (``direct``) or they
+    go through pinned host buffers (``host``); the reductions and
+    ``agree_min`` on CUDA tensors."""
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    script = tmp_path / "rank.py"
+    script.write_text(_RANK_EXCHANGE)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = str(s.getsockname()[1])
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    procs = [subprocess.Popen(
+        [sys.executable, str(script), staging, repo],
+        env={**os.environ, "RANK": str(r), "WORLD_SIZE": "2", "LOCAL_RANK": str(r),
+             "LOCAL_WORLD_SIZE": "2", "MASTER_ADDR": "localhost", "MASTER_PORT": port},
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=180)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, out in enumerate(outs):
+        assert f"RANK_OK {r}" in out, out[-3000:]

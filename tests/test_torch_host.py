@@ -5,7 +5,9 @@ native and the python parsers, multiseq's tagged packing
 (``batch_codes_dense_tagged``, one sequence a row), the LPT and hash owner maps and the
 exchange cap, ``output.writer`` + ``manifest`` bytes (with the HT
 engine's and a repair's writer options), ``verify_output``, the table
-sidecar and checkpoint files, and the native k-way merge.  Exact equality throughout."""
+sidecar and checkpoint files, the native k-way merge, and the multi-host
+helpers (``parallel.multihost``'s striping, the manifest shards and their
+merge, ``clean_output_dir`` and ``write_binary``).  Exact equality throughout."""
 
 import dataclasses
 import gzip
@@ -23,6 +25,7 @@ from fastkmer_tpu.ingest import batch as jbatch  # noqa: E402
 from fastkmer_tpu.output import manifest as jman  # noqa: E402
 from fastkmer_tpu.output import writer as jwriter  # noqa: E402
 from fastkmer_tpu.output import native as jnative  # noqa: E402
+from fastkmer_tpu.parallel import multihost as jmh  # noqa: E402
 from fastkmer_tpu.parallel import partitioner as jpart  # noqa: E402
 from fastkmer_tpu_torch import config as tconfig  # noqa: E402
 from fastkmer_tpu_torch.core import bits as tbits  # noqa: E402
@@ -30,6 +33,7 @@ from fastkmer_tpu_torch.ingest import batch as tbatch  # noqa: E402
 from fastkmer_tpu_torch.output import manifest as tman  # noqa: E402
 from fastkmer_tpu_torch.output import writer as twriter  # noqa: E402
 from fastkmer_tpu_torch.output import native as tnative  # noqa: E402
+from fastkmer_tpu_torch.parallel import multihost as tmh  # noqa: E402
 from fastkmer_tpu_torch.parallel import partitioner as tpart  # noqa: E402
 
 from .test_torch_cli import _dir_bytes  # noqa: E402
@@ -232,3 +236,97 @@ def test_table_sidecar_and_checkpoint_files_are_the_jax_ones(tmp_path):
             np.testing.assert_array_equal(g, w)
     assert (open(tmp_path / "ck_j" / "cursor.json").read()
             == open(tmp_path / "ck_t" / "cursor.json").read())
+
+
+@pytest.mark.parametrize("p", [1, 2, 3, 5])
+def test_batch_striping_is_the_jax_one(monkeypatch, p):
+    """``stripe_batches``, ``stripe_batches_padded`` (lockstep padding
+    with all-invalid batches) and ``host_stripe`` for every rank of p,
+    uneven tails included; JAX's ``host_stripe`` reads the process count,
+    so it is set to p here."""
+    for n_batches in (0, 1, p - 1, 2 * p + 1, 7):
+        batches = [(np.full((2, 5), i, np.uint8), i, 10 * i) for i in range(n_batches)]
+        for i in range(p):
+            got = list(tmh.stripe_batches(iter(batches), p, i))
+            assert got == list(jmh.stripe_batches(iter(batches), p, i))
+            got = list(tmh.stripe_batches_padded(iter(batches), 2, 5, p, i))
+            want = list(jmh.stripe_batches_padded(iter(batches), 2, 5, p, i))
+            assert len(got) == len(want) == -(-n_batches // p)
+            for (gc, gr, gb), (wc, wr, wb) in zip(got, want):
+                np.testing.assert_array_equal(gc, wc)
+                assert (gr, gb, gc.dtype) == (wr, wb, wc.dtype)
+    for n_items in (0, 1, 7, 26, 100):
+        monkeypatch.setattr(jmh.jax, "process_count", lambda: p)
+        for i in range(p):
+            monkeypatch.setattr(jmh.jax, "process_index", lambda i=i: i)
+            assert tmh.host_stripe(n_items, p, i) == jmh.host_stripe(n_items)
+    assert tmh.host_stripe(10) == (0, 10)  # one process
+
+
+@pytest.mark.parametrize("binary", [False, True])
+def test_manifest_shards_are_the_jax_ones(tmp_path, binary):
+    """``write_manifest_shard`` for three ranks' disjoint bin sets and
+    ``merge_manifest_shards``: the same bytes as the JAX package's, and a
+    merged manifest that ``verify_output`` passes; shards that claim the
+    same bin are refused by both."""
+    words, counts, bins = _table(5, 28, 300)
+    cfg = {"k": 28, "output_directory": "out/"}
+    rank = bins % 3
+    for d, writer, man in (("j", jwriter, jman), ("t", twriter, tman)):
+        out = str(tmp_path / d)
+        for r in range(3):
+            sel = rank == r
+            hashes = extra = None
+            if binary:
+                name = f"counts.part{r}.npz"
+                path = writer.write_binary(out, words[sel], counts[sel], bins[sel], 28,
+                                           name=name, clean=False)
+                extra = {name: "%064d" % r}  # the npz bytes hold zip timestamps
+                assert os.path.basename(path) == name
+            else:
+                hashes = writer.write_bin_files(out, words[sel], counts[sel], bins[sel], 28,
+                                                clean=False)
+            man.write_manifest_shard(out, cfg, words[sel], counts[sel], bins[sel], r,
+                                     bin_hashes=hashes, extra_files=extra, binary=binary)
+        man.merge_manifest_shards(out, 3)
+    got, want = _dir_bytes(str(tmp_path / "t")), _dir_bytes(str(tmp_path / "j"))
+    names = [n for n in want if n.endswith(".json")]
+    assert sorted(names) == ["manifest.json"] + [f"manifest.part{r}.json" for r in range(3)]
+    for n in names:
+        assert got[n] == want[n], n
+    if not binary:
+        assert got == want and tman.verify_output(str(tmp_path / "t"))["ok"]
+    bad = str(tmp_path / "bad")
+    for r in range(2):
+        tman.write_manifest_shard(bad, cfg, words, counts, bins, r)
+    for man in (tman, jman):
+        with pytest.raises(RuntimeError, match="same bins"):
+            man.merge_manifest_shards(bad, 2)
+
+
+def test_clean_output_dir_and_write_binary_are_the_jax_ones(tmp_path):
+    """``clean_output_dir`` removes bins, npz outputs and manifest shards
+    and keeps everything else; ``write_binary`` writes the same members
+    under its name, and cleans stale outputs only with ``clean``."""
+    words, counts, bins = _table(9, 28, 100)
+    keep = ["manifest.json", "table.npz", "notes.txt", "binary", "counts.part0.npz.tmp"]
+    stale = ["bin3", "bin12", "counts.npz", "counts.part1.npz", "manifest.part0.json"]
+    for d, writer in (("j", jwriter), ("t", twriter)):
+        out = tmp_path / d
+        out.mkdir()
+        for n in keep + stale:
+            (out / n).write_bytes(b"x")
+        writer.clean_output_dir(str(out))
+        assert sorted(os.listdir(out)) == sorted(keep)
+        writer.clean_output_dir(str(tmp_path / d / "new"))  # makes the directory
+        assert os.listdir(tmp_path / d / "new") == []
+        (out / "bin3").write_bytes(b"x")
+        writer.write_binary(str(out), words, counts, bins, 28, name="counts.part2.npz",
+                            clean=False)
+        assert (out / "bin3").exists()
+        writer.write_binary(str(out), words, counts, bins, 28)
+        assert not (out / "bin3").exists() and not (out / "counts.part2.npz").exists()
+    with np.load(tmp_path / "j" / "counts.npz") as j, np.load(tmp_path / "t" / "counts.npz") as t:
+        assert sorted(j.files) == sorted(t.files)
+        for f in j.files:
+            np.testing.assert_array_equal(t[f], j[f])
