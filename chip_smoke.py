@@ -9,8 +9,9 @@ super-k-mer transport, and the streaming mesh counter (the default of
 ``--mesh N``); the HT engine on the single device and the mesh; resume,
 repair and traces; the probe scripts that run kernels D and E
 (``fastkmer_tpu_torch.benchmarks``); multiseq (``--multiseq``) on
-the single device and the streaming mesh; and the mesh across processes
-(``parallel.multihost`` on ``torch.distributed``).  Each phase raises on
+the single device and the streaming mesh; the mesh across processes
+(``parallel.multihost`` on ``torch.distributed``); and the bench and entry
+layer (the bench, ``entry()`` and the multichip dry run).  Each phase raises on
 failure, so the process exits non-zero:
 
 1. card: needs ``torch.cuda.is_available()``; prints nvidia-smi's name and
@@ -106,6 +107,11 @@ failure, so the process exits non-zero:
    lane, 8 batches of [4096, 4096], S = 8; kernel A must launch) and
    ``distance_probe.run()`` under SquaredEuclidean and KLDLog2 (device
    Gram against host Gram at S = 8, 64, 256; raises past 1e-4 relative);
+   then the bench-layer probes at small sizes, each with the counts set
+   to 0 before it and its kernel launched: ``e2e`` (A), ``mesh_dedup_probe``
+   (B; its three arms' tables equal), ``merge_probe`` (C, in its
+   block-sort arm; that merge equal to the default one), ``stream_probe``
+   (A) and ``skew`` (B);
 11. the HT engine (useHT=1) on the single device at phase 5's workload:
    kernel A once a batch and B never, the manifest, the instance count,
    ascending files, and bin files equal to phase 5's with each trailing
@@ -168,16 +174,25 @@ failure, so the process exits non-zero:
    to phase 4's table, the manifest verified, the checkpoint directories
    emptied.  Each rank's wall time, peak device memory, spans and seconds
    in collectives are logged; a rank that fails or outlives its timeout
-   fails the phase.
+   fails the phase;
+18. the bench and entry layer: ``fastkmer_tpu_torch.bench`` in its default
+   mode at bench.py's full shapes (16 batches of [4096, 4096] from a
+   2^24-base genome; the JSON line logged, its sanity checks held, kernel
+   A at least once a batch), then every other mode on 4 batches of the
+   dup workload (2^21-base genome), each table equal to the default
+   mode's on those batches; ``entry.entry()`` on the card equal to
+   ``entry("cpu")`` on the same codes and ``entry.dryrun_multichip(4)``
+   (four shards on the card) equal to the CPU run's five numbers, each
+   with kernel B launched.
 
 Phases 11-13 and 17 run after 7b, on its data; phase 7b's merge-window
-timing and phases 8-10 follow them, then 14-16.  Each new phase logs its
+timing and phases 8-10 follow them, then 14-16, then 18.  Each new phase logs its
 seconds.  The script imports only the port (``fastkmer_tpu_torch``),
 torch and numpy.
 
 The line before the last is one JSON object with the five kernels'
 launches (D's: split_merge's and resume_merge's summed; A's and B's also
-by phase, 14-17 included), errors, times, bounds and shares of the bound (``bound_share`` =
+by phase, 14-18 included), errors, times, bounds and shares of the bound (``bound_share`` =
 bound_ms / ms); the last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -943,6 +958,58 @@ def multiseq_real(tmp: str) -> dict:
     return {"A": launches_a, "B": launches_b}
 
 
+def bench_entry_phase(cuda_extract) -> dict:
+    """Phase 18: the bench at bench.py's full shapes in its default mode
+    (the line logged, the sanity checks held, kernel A once a batch at
+    least); every other mode at 4 batches of the dup workload, each table
+    equal to the default mode's on those batches; ``entry()`` on the card
+    equal to ``entry("cpu")`` on the same codes and ``dryrun_multichip(4)``
+    equal to the CPU run's five numbers, each with kernel B launched.
+    -> the phase's launches of A and B."""
+    import torch
+
+    from fastkmer_tpu_torch import bench, entry
+
+    t18 = time.perf_counter()
+    cuda_extract.LAUNCHES = cuda_extract.FULL_LAUNCHES = 0
+    rec, _ = bench.run()
+    a_default = cuda_extract.LAUNCHES
+    log(f"[bench 18] bench: {json.dumps(rec)}")
+    check(rec["metric"] == "stream_count_throughput_k28_m10" and rec["unit"] == "Gbp/s"
+          and rec["value"] > 0 and rec["extra"]["step_gbps"] > 0, f"18: bench line {rec}")
+    check(a_default >= bench.NBATCH, f"18: {a_default} kernel A launches for {bench.NBATCH} "
+          "batches")
+    _, ref = bench.run("stream", dup=True, n_batch=4)
+    for mode in bench.MODES[1:]:
+        mrec, table = bench.run(mode, dup=True, n_batch=4)
+        if table is not None:
+            check(all(np.array_equal(a, b) for a, b in zip(table, ref)),
+                  f"18: {mode}'s table differs from stream's on the same 4 batches")
+        log(f"[bench 18] bench {mode} (dup, 4 batches): {mrec['value']:.4f} Gbp/s"
+            f"{'' if table is None else ', table == stream'}")
+    a18 = cuda_extract.LAUNCHES
+    cuda_extract.LAUNCHES = cuda_extract.FULL_LAUNCHES = 0
+    step, (codes,) = entry.entry()
+    got = step(codes)
+    cpu_step, _ = entry.entry("cpu")
+    want = cpu_step(codes.cpu())
+    check(all(torch.equal(g.cpu(), w) for g, w in zip(got, want)),
+          "18: entry() on the card != entry('cpu') on the same codes")
+    b_entry = cuda_extract.FULL_LAUNCHES
+    check(b_entry > 0, "18: entry() launched no kernel B")
+    cuda_extract.FULL_LAUNCHES = 0
+    dry = entry.dryrun_multichip(4)
+    b_dry = cuda_extract.FULL_LAUNCHES
+    dry_cpu = entry.dryrun_multichip(4, "cpu")
+    check(dry == dry_cpu, f"18: dryrun_multichip(4) {dry} != the CPU run's {dry_cpu}")
+    check(b_dry > 0, "18: dryrun_multichip(4) launched no kernel B")
+    log(f"[bench 18] entry() == entry('cpu'), {b_entry} kernel B launch(es); "
+        f"dryrun_multichip(4) == the CPU run's {dry}, {b_dry} kernel B launches; kernel A "
+        f"{a_default} launches in the default bench run, {a18} in the phase; phase 18 "
+        f"{time.perf_counter() - t18:.2f} s")
+    return {"A": a18, "B": b_entry + b_dry}
+
+
 def main() -> int:
     try:
         import torch
@@ -958,6 +1025,8 @@ def main() -> int:
         from fastkmer_tpu_torch.benchmarks import cuda_bitonic_merge, cuda_probe
         from fastkmer_tpu_torch.benchmarks import distance_probe, multiseq_probe
         from fastkmer_tpu_torch.benchmarks import resume_merge_probe, split_merge_probe
+        from fastkmer_tpu_torch.benchmarks import e2e, merge_probe, mesh_dedup_probe
+        from fastkmer_tpu_torch.benchmarks import skew, stream_probe
         from fastkmer_tpu_torch.benchmarks._common import HBM_BYTES_PER_S, rand_i32, time_ms
         from fastkmer_tpu_torch.core.tbits import pair_key
         from fastkmer_tpu_torch.ops import count_sort, cuda_extract, cuda_sort, extract
@@ -1711,8 +1780,26 @@ def main() -> int:
     for name in ("multisequence.SquaredEuclidean", "multisequence.KLDLog2"):
         for line in distance_probe.run(name):  # raises past 1e-4 relative
             log(f"[probes] distance_probe {json.dumps(line)}")
+    # the bench-layer probes at small sizes, each with its kernel
+    layer_probes = (
+        ("e2e", lambda: e2e.run(4, 4, 26), "A"),
+        ("mesh_dedup_probe", lambda: mesh_dedup_probe.run(4, 1024, 1024, 1 << 18, 4, 4), "B"),
+        ("merge_probe", lambda: merge_probe.run(1 << 23, 1 << 20, 1 << 20, iters=3), "C"),
+        ("stream_probe", lambda: stream_probe.run(n_batch=4), "A"),
+        ("skew", lambda: skew.run(), "B"),
+    )
+    probe_launches = {}
+    for name, fn, kernel in layer_probes:
+        cuda_extract.LAUNCHES = cuda_extract.FULL_LAUNCHES = cuda_sort.LAUNCHES = 0
+        line = fn()
+        n = {"A": cuda_extract.LAUNCHES, "B": cuda_extract.FULL_LAUNCHES,
+             "C": cuda_sort.LAUNCHES}[kernel]
+        check(n > 0, f"{name} launched no kernel {kernel}")
+        probe_launches[name] = n
+        log(f"[probes] {name}: {json.dumps(line)}")
     log(f"[probes] bitonic merge launches: split_merge {split_launches}, resume_merge "
         f"{resume_launches}; pass launches: copy {copy_launches}, transpose {tr_launches}; "
+        f"bench-layer probes' kernel launches {probe_launches}; "
         f"phase 10 {time.perf_counter() - t10:.2f} s")
 
     # --- 14-16. multiseq: small, cuda against cpu; at real size on the
@@ -1721,6 +1808,9 @@ def main() -> int:
         ms_small = multiseq_small(tmp)
     with tempfile.TemporaryDirectory() as tmp:
         ms_real = multiseq_real(tmp)
+
+    # --- 18. the bench and entry layer: the bench, entry() and the dry run ----
+    bench18 = bench_entry_phase(cuda_extract)
 
     log(f"[smoke] every phase passed in {time.perf_counter() - t_run:.1f} s")
     # bounds: each input byte read once, each output byte written once
@@ -1748,9 +1838,9 @@ def main() -> int:
     # per batch, 14 and 16 multiseq, 17 streaming across processes: the
     # ranks' own counts summed)
     by_phase = {"extract_count": {"5": launches, "11": ht_launches, "14": ms_small["A"],
-                                  "15": ms_real["A"]},
+                                  "15": ms_real["A"], "18": bench18["A"]},
                 "extract_full": {"7": stream_full, "12": ht_full, "14": ms_small["B"],
-                                 "16": ms_real["B"], "17": rank_full}}
+                                 "16": ms_real["B"], "17": rank_full, "18": bench18["B"]}}
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": f"fastkmer_tpu_torch/csrc/{src}",
         "replaces": replaces, "launches": n, "max_abs_err": err, "ms": ms, "plain_ms": pms,

@@ -8,11 +8,15 @@ The package owns copies of the host modules it needs, at the same paths
 as in ``fastkmer_tpu`` so that each has a visible counterpart:
 
 * ``config.JobConfig`` (positionals, derived bin count, output naming)
-* ``core.bits`` (ASCII codes, word counts, decode for output)
+* ``core.bits`` (ASCII codes, word counts, decode for output, k-mer pack)
 * ``ingest.{batch,fasta,prefetch,native}`` (FASTA/FASTQ -> [R, L] code batches)
 * ``output.{writer,manifest,native}`` (per-bin files, npz, manifests, k-way merge)
 * ``parallel.partitioner`` (LPT and hash bin placement, exchange cap sizing)
 * ``utils.{timing,nativebuild}`` (``StageTimer``; g++ builds of the native parts)
+
+``bench`` is the headline benchmark (``python -m fastkmer_tpu_torch.bench``)
+and ``entry`` the entry points (``entry()``,
+``dryrun_multichip(n)``).
 
 This package imports ``torch`` and neither ``jax`` nor ``fastkmer_tpu``.  Packed k-mer words are
 ``torch.int32`` tensors that hold the uint32 bit pattern (the all-ones

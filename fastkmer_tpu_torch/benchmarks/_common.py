@@ -82,6 +82,23 @@ def time_ms(fn, iters: int, setup=None) -> float:
     return float(np.median(times))
 
 
+def device_ms(fn, iters: int, dev: torch.device, setup=None) -> float:
+    """``time_ms`` on a CUDA device; on the CPU the median host-clock
+    milliseconds of ``fn`` after one warm-up call (a CPU time, never a
+    device number)."""
+    if dev.type == "cuda":
+        return time_ms(fn, iters, setup)
+    times = []
+    for i in range(iters + 1):
+        if setup is not None:
+            setup()
+        t0 = time.perf_counter()
+        fn()
+        if i:
+            times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
 def rand_i32(gen: torch.Generator, n: int, dev: torch.device, lo: int = -(1 << 31),
              hi: int = 1 << 31) -> torch.Tensor:
     """n int32 values uniform in [lo, hi), made on ``dev`` from ``gen``

@@ -1,6 +1,7 @@
 """Host-side (numpy) bit-level core — the port's copy of what it uses of
 ``fastkmer_tpu.core.bits``: ASCII <-> 2-bit codes, the word count of a
-k-mer, and the decode of packed word rows for output.
+k-mer, the decode of packed word rows for output, and the scalar helpers
+(reverse complement of a packed m-mer, pack and unpack of one k-mer).
 
 Bases are 2-bit codes A=0 C=1 G=2 T=3; anything else (N, lowercase, ...)
 is the invalid code 4 (package.scala:697).  A k-mer is ``W = ceil(k/16)``
@@ -41,8 +42,45 @@ def decode_codes(codes: np.ndarray) -> str:
     return CODE_TO_ASCII[codes].tobytes().decode()
 
 
+def reverse_complement_int(v: int, length: int) -> int:
+    """RC of a 2-bit-packed integer m-mer (reference: package.scala:103-115)."""
+    rev = 0
+    for _ in range(length):
+        rev = (rev << 2) | (3 - (v & 3))
+        v >>= 2
+    return rev
+
+
 def num_words(k: int) -> int:
     return -(-k // BASES_PER_WORD)
+
+
+def pack_kmer_words(codes: np.ndarray, k: int) -> tuple[int, ...]:
+    """Pack k codes into W big-endian uint32 words (last word low-padded)."""
+    codes = np.asarray(codes, dtype=np.uint64)
+    if codes.shape[0] != k or np.any(codes >= 4):
+        raise ValueError(f"pack_kmer_words needs {k} codes in 0..3")
+    words = []
+    for w in range(num_words(k)):
+        val = 0
+        for j in range(BASES_PER_WORD):
+            pos = w * BASES_PER_WORD + j
+            val = (val << 2) | (int(codes[pos]) if pos < k else 0)
+        words.append(val & 0xFFFFFFFF)
+    return tuple(words)
+
+
+def unpack_kmer_words(words, k: int) -> np.ndarray:
+    """Inverse of pack_kmer_words -> uint8 codes of length k."""
+    out = np.empty(k, dtype=np.uint8)
+    for pos in range(k):
+        w, j = divmod(pos, BASES_PER_WORD)
+        out[pos] = (int(words[w]) >> (2 * (BASES_PER_WORD - 1 - j))) & 3
+    return out
+
+
+def words_to_str(words, k: int) -> str:
+    return decode_codes(unpack_kmer_words(words, k))
 
 
 def decode_words_batch(words: np.ndarray, k: int) -> list[bytes]:

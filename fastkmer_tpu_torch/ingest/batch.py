@@ -1,6 +1,8 @@
 """Fixed-shape batching of encoded reads — the port's copy of what it uses
-of ``fastkmer_tpu.ingest.batch``: the dense packing of ``batch_file``, and
-the tagged packing of multisequence ingest (``batch_codes_dense_tagged``).
+of ``fastkmer_tpu.ingest.batch``: ``batch_file`` (densely packed, or one
+read a row), the packers of encoded reads (``batch_codes``: one read a
+row; ``batch_codes_dense``), and the tagged packing of multisequence
+ingest (``batch_codes_dense_tagged``).
 
 Reads become fixed-capacity [R, L] uint8 code matrices padded with the
 invalid code 4.  Window validity downstream is "window contains no code
@@ -15,6 +17,40 @@ from typing import Iterable, Iterator, Tuple
 import numpy as np
 
 from ..core import bits
+
+
+def batch_codes(
+    reads: Iterable[bytes | np.ndarray],
+    reads_per_batch: int,
+    read_len: int,
+) -> Iterator[Tuple[np.ndarray, int, int]]:
+    """Pack encoded reads one per row into [R, L] uint8 batches padded with
+    INVALID_CODE -> (codes, n_reads, n_bases) per batch; the last batch
+    keeps its empty rows, so every batch has one shape.  A read longer
+    than ``read_len`` raises (chunk it upstream, ingest.fasta.iter_reads).
+    One read a row keeps a read <-> row correspondence."""
+    return _rows(map(_encoded, reads), reads_per_batch, read_len)
+
+
+def _encoded(read: bytes | np.ndarray) -> np.ndarray:
+    return read if isinstance(read, np.ndarray) else bits.encode_ascii(read)
+
+
+def _rows(codes_iter, reads_per_batch: int, read_len: int):
+    buf = np.full((reads_per_batch, read_len), bits.INVALID_CODE, dtype=np.uint8)
+    row = n_bases = 0
+    for codes in codes_iter:
+        if codes.shape[0] > read_len:
+            raise ValueError(f"read of length {codes.shape[0]} > batch read_len {read_len}")
+        buf[row, : codes.shape[0]] = codes
+        n_bases += codes.shape[0]
+        row += 1
+        if row == reads_per_batch:
+            yield buf, row, n_bases
+            buf = np.full((reads_per_batch, read_len), bits.INVALID_CODE, dtype=np.uint8)
+            row = n_bases = 0
+    if row > 0:
+        yield buf, row, n_bases
 
 
 class _DensePacker:
@@ -92,9 +128,18 @@ def batch_codes_dense_tagged(
     batches, densely packed with one sequence a row (_DensePacker)."""
     packer = _DensePacker(reads_per_batch, read_len)
     for tag, r in tagged_reads:
-        codes = r if isinstance(r, np.ndarray) else bits.encode_ascii(r)
-        yield from packer.add(codes, tag)
+        yield from packer.add(_encoded(r), tag)
     yield from packer.flush()
+
+
+def batch_codes_dense(
+    reads: Iterable[bytes | np.ndarray],
+    reads_per_batch: int,
+    read_len: int,
+) -> Iterator[Tuple[np.ndarray, int, int]]:
+    """Like batch_codes but densely packed (_DensePacker): the same count
+    tables in up to read_len / mean read length times fewer batches."""
+    return _packed(_DensePacker(reads_per_batch, read_len), map(_encoded, reads))
 
 
 def batch_file(
@@ -104,9 +149,11 @@ def batch_file(
     reads_per_batch: int,
     read_len: int,
     use_native: bool | None = None,
+    dense: bool = True,
 ) -> Iterator[Tuple[np.ndarray, int, int]]:
-    """File -> densely packed [R, L] code batches, as (codes, n_reads,
-    n_bases); a fresh buffer per batch.
+    """File -> [R, L] code batches, as (codes, n_reads, n_bases); a fresh
+    buffer per batch.  ``dense`` (default) packs several reads a row;
+    False packs one read a row (batch_codes).
 
     Prefers the native C++ parse+encode path (ingest.native) when built;
     falls back to the python parser.  Both give identical batches.
@@ -121,13 +168,13 @@ def batch_file(
             if native.available():
                 fmt = fasta.sniff_format(path)
                 codes, starts = native.parse_file(path, fmt)
-                return _batches_from_parsed(codes, starts, k, reads_per_batch, read_len)
+                return _batches_from_parsed(codes, starts, k, reads_per_batch, read_len,
+                                            dense)
         except Exception:
             if use_native:
                 raise
-    packer = _DensePacker(reads_per_batch, read_len)
     reads = (seq for _, seq in fasta.iter_reads(path, sequence_type, k, chunk_len=read_len))
-    return _packed(packer, (bits.encode_ascii(r) for r in reads))
+    return (batch_codes_dense if dense else batch_codes)(reads, reads_per_batch, read_len)
 
 
 def _packed(packer: _DensePacker, reads) -> Iterator[Tuple[np.ndarray, int, int]]:
@@ -140,6 +187,7 @@ def _packed(packer: _DensePacker, reads) -> Iterator[Tuple[np.ndarray, int, int]
 
 def _batches_from_parsed(
     codes: np.ndarray, starts: np.ndarray, k: int, reads_per_batch: int, read_len: int,
+    dense: bool = True,
 ) -> Iterator[Tuple[np.ndarray, int, int]]:
     """Assemble batches from natively parsed (codes, record offsets):
     records longer than read_len are chunked with k-1 overlap (the long-mode
@@ -158,5 +206,7 @@ def _batches_from_parsed(
                 if pos + read_len >= end:
                     break
                 pos += stride
-    return _packed(_DensePacker(reads_per_batch, read_len),
-                   (codes[off : off + ln] for off, ln in rows))
+    reads = (codes[off : off + ln] for off, ln in rows)
+    if not dense:
+        return _rows(reads, reads_per_batch, read_len)
+    return _packed(_DensePacker(reads_per_batch, read_len), reads)

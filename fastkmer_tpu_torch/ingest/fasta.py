@@ -25,7 +25,12 @@ from __future__ import annotations
 
 import gzip
 import io
+import os
 from typing import Iterator, Tuple
+
+import numpy as np
+
+from ..core import bits
 
 
 def _open(path: str) -> io.BufferedReader:
@@ -121,3 +126,15 @@ def iter_reads(
         else:
             for i, chunk in enumerate(chunk_sequence(seq, k, chunk_len)):
                 yield f"{name}#{i}", chunk
+
+
+def encode_read(seq: bytes) -> np.ndarray:
+    return bits.encode_ascii(seq)
+
+
+def total_bases(path: str) -> int:
+    return sum(len(s) for _, s in iter_records(path))
+
+
+def file_size(path: str) -> int:
+    return os.path.getsize(path)

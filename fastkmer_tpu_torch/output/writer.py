@@ -146,3 +146,23 @@ def write_binary_with_manifest(out_dir: str, cfg_dict: dict, words, counts,
         out_dir, cfg_dict, words, counts, bins, extra_files=files, binary=True,
     )
     return path
+
+
+def read_bin_file(path: str) -> dict[str, int]:
+    """Parse a bin file back into {kmer: count} (a trailing EOF is dropped)."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data.endswith(b"EOF"):
+        data = data[:-3]
+    out: dict[str, int] = {}
+    for line in data.splitlines():
+        if line:
+            km, cnt = line.split(b"\t")
+            out[km.decode()] = int(cnt)
+    return out
+
+
+def read_output_dir(out_dir: str) -> dict[int, dict[str, int]]:
+    """Every ``bin<i>`` file of a directory -> {i: {kmer: count}}."""
+    return {int(name[3:]): read_bin_file(os.path.join(out_dir, name))
+            for name in os.listdir(out_dir) if name.startswith("bin")}

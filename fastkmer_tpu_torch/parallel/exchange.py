@@ -158,7 +158,9 @@ def _exchange_ranks(mesh: Mesh, cap: int, send: list) -> list:
     block g bound for global shard g -> recv[i]: local shard i's lanes,
     block s from global shard s.  One ``all_to_all_single`` per lane dtype
     moves [rank q, lane, source j, destination i, cap] blocks (the local
-    ones included); the send lanes are released as they are packed."""
+    ones included); the pack and the received blocks land on shard 0's
+    card, and each received lane moves to its shard's card.  The send
+    lanes are released as they are packed."""
     nl, p = mesh.n_local, mesh.world
     recv = [[None] * len(send[0]) for _ in range(nl)]
     groups: dict = {}
@@ -174,8 +176,8 @@ def _exchange_ranks(mesh: Mesh, cap: int, send: list) -> list:
         got = mesh.comm.all_to_all(pack)  # [source rank, lane, source j, destination i, cap]
         del pack
         for a, i in enumerate(idx):
-            for d in range(nl):
-                recv[d][i] = got[:, a, :, d].reshape(-1)
+            for d, dev in enumerate(mesh.devices):
+                recv[d][i] = got[:, a, :, d].reshape(-1).to(dev)
     return recv
 
 

@@ -12,8 +12,15 @@ order):
     # or RANK / WORLD_SIZE / MASTER_ADDR / MASTER_PORT set by hand
     from fastkmer_tpu_torch.parallel import multihost
     multihost.init_distributed()                  # reads the launcher's env
-    mesh = multihost.init_global_mesh(2)          # 2 shards on this rank's card
+    mesh = multihost.init_global_mesh(2)          # 2 shards on this rank's cards
     res = driver.execute_job_distributed(cfg, mesh)   # this rank's bins
+
+A rank's shards spread over the cards its host gives it (``local_cards``:
+local rank r of q on the host owns the cards c with c % q == r; a rank
+more than the cards shares one), and rank 0 warns when a host card gets
+no shard.  Under torchrun the host's ranks come from ``LOCAL_RANK`` and
+``LOCAL_WORLD_SIZE``; a hand launch without them counts them through the
+rendezvous store, each rank writing its hostname there.
 
 Every rank reads the whole file and feeds its round-robin stripe of
 batches, padded so that every rank takes the same number of steps
@@ -36,6 +43,7 @@ import contextlib
 import dataclasses
 import datetime
 import os
+import socket
 import sys
 import time
 
@@ -57,6 +65,35 @@ def choose_backend(device: torch.device, local_ranks: int, n_cards: int) -> str:
     if device.type == "cpu":
         return "gloo"
     return "nccl" if local_ranks <= n_cards else "gloo"
+
+
+def local_cards(local_rank: int, local_ranks: int, n_cards: int) -> tuple[int, ...]:
+    """The cards of local rank ``local_rank`` of ``local_ranks`` on a host
+    of ``n_cards``: those c with c % local_ranks == local_rank, so the
+    host's ranks partition its cards; with more ranks than cards, the one
+    card local_rank % n_cards.  Local shard j sits on cards[j % len(cards)]."""
+    if local_ranks > n_cards:
+        return (local_rank % n_cards,)
+    return tuple(range(local_rank, n_cards, local_ranks))
+
+
+def idle_cards(local_ranks: int, n_local: int, n_cards: int) -> int:
+    """The cards of a host that get no shard when each of its
+    ``local_ranks`` ranks holds ``n_local`` shards placed by local_cards."""
+    used = sum(min(n_local, len(local_cards(r, local_ranks, n_cards)))
+               for r in range(min(local_ranks, n_cards)))
+    return n_cards - used
+
+
+def host_layout(hostnames: list, rank: int) -> tuple[int, int]:
+    """(local rank, ranks on this host) from every rank's hostname: the
+    ranks on one host are numbered in global rank order."""
+    same = [r for r, h in enumerate(hostnames) if h == hostnames[rank]]
+    return same.index(rank), len(same)
+
+
+# (local rank, ranks on this host) of this process, set by init_distributed
+_layout: tuple[int, int] | None = None
 
 
 def _env_int(name: str) -> int | None:
@@ -82,6 +119,7 @@ def init_distributed(coordinator_address: str | None = None,
     why on rank 0.  A no-op once the group exists."""
     if dist.is_initialized():
         return
+    global _layout
     dev = torch.device(device)
     if coordinator_address is None:
         world = _env_int("WORLD_SIZE")
@@ -89,18 +127,35 @@ def init_distributed(coordinator_address: str | None = None,
         if world is None or rank is None:
             return  # no launcher: one process
         init_method = "env://"
+        host, port = os.environ.get("MASTER_ADDR"), os.environ.get("MASTER_PORT")
     else:
         world, rank = num_processes, process_id
         if world is None or rank is None:
             raise ValueError("coordinator_address needs num_processes and process_id")
         init_method = f"tcp://{coordinator_address}"
-    local_rank = _env_int("LOCAL_RANK")
-    local_rank = rank if local_rank is None else local_rank
-    # ranks on this host: torchrun says; a hand launch is taken for one host
-    local_ranks = _env_int("LOCAL_WORLD_SIZE") or world
+        host, port = coordinator_address.rsplit(":", 1)
     n_cards = torch.cuda.device_count() if dev.type == "cuda" else 0
     if dev.type == "cuda" and n_cards == 0:
         raise RuntimeError("device cuda requested but torch.cuda.is_available() is False")
+    if backend == "nccl" and dev.type == "cpu":
+        raise ValueError("backend nccl cannot serve device cpu: NCCL needs a card per rank; "
+                         "use gloo")
+    timeout = datetime.timedelta(seconds=timeout_s)
+    store = None
+    local_ranks = _env_int("LOCAL_WORLD_SIZE")
+    if local_ranks is not None:  # torchrun's layout
+        local_rank = _env_int("LOCAL_RANK")
+        local_rank = rank if local_rank is None else local_rank
+    else:
+        # a hand launch: count this host's ranks through the rendezvous
+        # store before the backend rule reads them
+        if host is None or port is None:
+            raise ValueError("a launch without LOCAL_WORLD_SIZE needs MASTER_ADDR and "
+                             "MASTER_PORT, or coordinator_address")
+        store = dist.TCPStore(host, int(port), world, is_master=rank == 0, timeout=timeout)
+        store.set(f"fastkmer/hostname/{rank}", socket.gethostname())
+        names = [store.get(f"fastkmer/hostname/{r}").decode() for r in range(world)]
+        local_rank, local_ranks = host_layout(names, rank)
     rule = choose_backend(dev, local_ranks, n_cards)
     if backend is None:
         backend = rule
@@ -110,9 +165,10 @@ def init_distributed(coordinator_address: str | None = None,
             f"device {dev.type}: NCCL needs a card per rank; use gloo"
         )
     if dev.type == "cuda":
-        torch.cuda.set_device(local_rank % n_cards)
-    dist.init_process_group(backend, init_method=init_method, world_size=world, rank=rank,
-                            timeout=datetime.timedelta(seconds=timeout_s))
+        torch.cuda.set_device(local_cards(local_rank, local_ranks, n_cards)[0])
+    rendezvous = {"init_method": init_method} if store is None else {"store": store}
+    dist.init_process_group(backend, world_size=world, rank=rank, timeout=timeout, **rendezvous)
+    _layout = (local_rank, local_ranks)
     if rank == 0:
         why = ("CPU tensors" if dev.type == "cpu" else
                f"{local_ranks} ranks on {n_cards} card(s): "
@@ -137,7 +193,7 @@ class Collectives:
     and ``bytes`` sent to other ranks by the exchange."""
 
     backend: str
-    device: torch.device  # the shards' device
+    device: torch.device  # the rank's first card (its current device), or the CPU
     staging: str  # "direct": tensors go to the backend as they are; "host": pinned copies
     seconds: float = 0.0
     calls: int = 0
@@ -197,28 +253,49 @@ def _gloo_takes_cuda(dev: torch.device) -> bool:
     return True
 
 
+def warn_idle_cards(local_ranks: int, n_local: int, n_cards: int) -> None:
+    """One line on stderr when a host's cards are not all given a shard."""
+    idle = idle_cards(local_ranks, n_local, n_cards)
+    if idle > 0:
+        print(f"[multihost] warning: {idle} of this host's {n_cards} cards get no shard "
+              f"({local_ranks} rank(s) of {n_local} shard(s) each); give each rank more "
+              f"shards or the host more ranks", file=sys.stderr, flush=True)
+
+
 def init_global_mesh(local_shards: int | None = None, device="cuda"):
-    """The global 1-D mesh: ``local_shards`` shards on this rank's device
-    (its card, ``cuda:LOCAL_RANK % device_count()``, or the CPU), the same
-    count on every rank.  Without a process group of several ranks it is
-    ``exchange.make_mesh`` (default: one shard per visible card).  Runs on
-    the card unless the caller asks for the CPU; raises when CUDA is asked
-    for and absent."""
+    """The global 1-D mesh: ``local_shards`` shards on each rank, spread
+    over the rank's cards (``local_cards``) or all on the CPU.  Without a
+    process group of several ranks it is ``exchange.make_mesh`` (default:
+    one shard per visible card).  Rank 0 warns when cards of its host get
+    no shard.  Runs on the card unless the caller asks for the CPU; raises
+    when CUDA is asked for and absent."""
     from ..pipeline import resolve_device
     from . import exchange
 
     dev = resolve_device(device)
     p = world_size()
+    n_cards = torch.cuda.device_count() if dev.type == "cuda" else 0
     if p == 1:
         if local_shards is None:
-            local_shards = torch.cuda.device_count() if dev.type == "cuda" else 1
+            local_shards = n_cards if dev.type == "cuda" else 1
+        if dev.type == "cuda":
+            warn_idle_cards(1, local_shards, n_cards)
         return exchange.make_mesh(local_shards, dev)
-    if dev.type == "cuda":
-        dev = torch.device("cuda", torch.cuda.current_device())
     backend = dist.get_backend()
     if backend == "nccl" and dev.type == "cpu":
         raise ValueError("an nccl group cannot run a CPU mesh; initialize with device='cpu'")
     n_local = 1 if local_shards is None else int(local_shards)
+    r = rank()
+    devices = (dev,) * n_local
+    if dev.type == "cuda":
+        if _layout is None:  # a group that init_distributed did not start
+            cards = (torch.cuda.current_device(),)
+        else:
+            cards = local_cards(*_layout, n_cards)
+            if r == 0:
+                warn_idle_cards(_layout[1], n_local, n_cards)
+        devices = tuple(torch.device("cuda", cards[j % len(cards)]) for j in range(n_local))
+        dev = devices[0]
     staging = "direct"
     if backend == "gloo" and dev.type == "cuda" and not _gloo_takes_cuda(dev):
         staging = "host"
@@ -226,12 +303,11 @@ def init_global_mesh(local_shards: int | None = None, device="cuda"):
     lo, hi = (comm.reduce(torch.tensor([n_local]), op)[0].item() for op in ("min", "max"))
     if lo != hi or n_local < 1:
         raise ValueError(f"ranks hold {lo} to {hi} shards; every rank needs the same count >= 1")
-    r = rank()
     if r == 0 and dev.type == "cuda" and backend == "gloo":
         print(f"[multihost] gloo all_to_all_single on CUDA tensors: "
               f"{'accepted' if staging == 'direct' else 'refused; staged through pinned host buffers'}",
               file=sys.stderr, flush=True)
-    return exchange.Mesh((dev,) * n_local, rank=r, world=p, comm=comm)
+    return exchange.Mesh(devices, rank=r, world=p, comm=comm)
 
 
 def agree_min(value: int, comm: Collectives | None = None) -> int:

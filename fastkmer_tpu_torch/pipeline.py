@@ -103,12 +103,20 @@ def _batch_extract_keys(codes: torch.Tensor, k: int, m: int, B: int, flagged: bo
     return cuda_extract.extract_sentinel(codes, k, m, B, flag_lane=flagged)
 
 
+def _batch_count_sorted(codes: torch.Tensor, k: int, m: int, B: int) -> count_sort.SortedCounts:
+    """Per-batch count to a sorted unique-run view without bins: kernel A
+    (its plain version on the CPU), then ``count_presentineled``.  The
+    counterpart of the JAX ``_batch_count_pallas(..., with_bins=False)``;
+    at k % 16 == 0 the words carry the flag lane (0 on valid rows)."""
+    cols = _batch_extract_keys(codes, k, m, B, not count_sort.sentinel_safe_for(k))
+    return count_sort.count_presentineled(list(cols))
+
+
 def _batch_count(codes: torch.Tensor, k: int, m: int, B: int):
     """Per-batch count straight to a host unique table (the path without
     the accumulator)."""
     W = num_words(k)
-    cols = _batch_extract_keys(codes, k, m, B, not count_sort.sentinel_safe_for(k))
-    sc = count_sort.count_presentineled(list(cols))
+    sc = _batch_count_sorted(codes, k, m, B)
     idx = torch.nonzero(sc.is_uniq).squeeze(1)
     words = sc.words[idx, :W]
     return table_to_host(words, sc.counts[idx], binhash.bins_from_words(words, k, m, B))
@@ -144,6 +152,14 @@ def _batch_count_dedup(codes: torch.Tensor, k: int, m: int, B: int, cap: int):
         block_sort=count_sort.block_sort_opt_in(),
     )
     return ccols, wts, n_u, over, cols
+
+
+def _to_merge_rows(sc: count_sort.SortedCounts):
+    """SortedCounts -> (key cols, weights) in merge-row form: unique rows
+    keep their words and total count, every other row becomes the
+    sentinel with weight 0."""
+    cols = tuple(torch.where(sc.is_uniq, sc.words[:, w], -1) for w in range(sc.words.shape[1]))
+    return cols, torch.where(sc.is_uniq, sc.counts, 0)
 
 
 def _init_acc_state(acc_cap: int, lanes: int, device: torch.device):
@@ -245,6 +261,16 @@ class DeviceAccumulator:
         """Buffer one batch of pre-sentineled key columns (weight 1 each)."""
         n = int(cols[0].shape[0])
         self._append((tuple(cols), None), n, n)
+
+    def add(self, sc: count_sort.SortedCounts) -> None:
+        """Buffer one pre-counted batch (e.g. _batch_count_sorted's):
+        unique rows weighted by their count.  At k % 16 == 0 the words
+        carry the flag lane, so the accumulator needs extra_lanes=1, as
+        for add_raw.  Bounded by its weight total, as add_part is."""
+        cols, wts = _to_merge_rows(sc)
+        if len(cols) != self.lanes:
+            raise ValueError(f"{len(cols)} key lanes for an accumulator of {self.lanes}")
+        self.add_part(cols, wts)
 
     def add_part(self, cols: tuple, wts: torch.Tensor) -> None:
         """Buffer one pre-counted part: key columns with weights (0 on
@@ -403,6 +429,8 @@ def count_batches(
     at the npos/4 cap admits the batch's raw columns instead.  True/False
     force the mode.
 
+    ``batches`` yield (codes, n_reads, n_bases), codes a numpy array or a
+    tensor (moved to ``device``).
     ``checkpointer`` resumes from its cursor (the covered batches are read
     and skipped) and checkpoints every ``checkpointer.interval`` batches:
     the accumulator by a forced spill, the host path per batch.
@@ -516,7 +544,8 @@ def count_batches(
             and batch_idx % PROBE_EVERY == 0
         )
         with _span(timer, "device_count", dev):
-            codes_t = torch.from_numpy(codes).to(dev)
+            codes_t = (codes.to(dev) if isinstance(codes, torch.Tensor)
+                       else torch.from_numpy(codes).to(dev))
             if engine == "hash":
                 dpart, coll = _batch_count_ht(codes_t, coll, k, m, B)
             elif acc is not None and (dedup_mode or probe):

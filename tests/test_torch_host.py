@@ -7,7 +7,11 @@ exchange cap, ``output.writer`` + ``manifest`` bytes (with the HT
 engine's and a repair's writer options), ``verify_output``, the table
 sidecar and checkpoint files, the native k-way merge, and the multi-host
 helpers (``parallel.multihost``'s striping, the manifest shards and their
-merge, ``clean_output_dir`` and ``write_binary``).  Exact equality throughout."""
+merge, ``clean_output_dir`` and ``write_binary``), and the public helpers
+of the copies: ``core.bits``' scalar k-mer helpers, ``ingest.fasta``'s
+``encode_read``/``total_bases``/``file_size``, the packers ``batch_codes``
+and ``batch_codes_dense`` and ``batch_file(dense=False)``, and the bin
+readers ``read_bin_file``/``read_output_dir``.  Exact equality throughout."""
 
 import dataclasses
 import gzip
@@ -22,6 +26,7 @@ pytest.importorskip("torch")
 from fastkmer_tpu import config as jconfig  # noqa: E402
 from fastkmer_tpu.core import bits as jbits  # noqa: E402
 from fastkmer_tpu.ingest import batch as jbatch  # noqa: E402
+from fastkmer_tpu.ingest import fasta as jfasta  # noqa: E402
 from fastkmer_tpu.output import manifest as jman  # noqa: E402
 from fastkmer_tpu.output import writer as jwriter  # noqa: E402
 from fastkmer_tpu.output import native as jnative  # noqa: E402
@@ -30,6 +35,7 @@ from fastkmer_tpu.parallel import partitioner as jpart  # noqa: E402
 from fastkmer_tpu_torch import config as tconfig  # noqa: E402
 from fastkmer_tpu_torch.core import bits as tbits  # noqa: E402
 from fastkmer_tpu_torch.ingest import batch as tbatch  # noqa: E402
+from fastkmer_tpu_torch.ingest import fasta as tfasta  # noqa: E402
 from fastkmer_tpu_torch.output import manifest as tman  # noqa: E402
 from fastkmer_tpu_torch.output import writer as twriter  # noqa: E402
 from fastkmer_tpu_torch.output import native as tnative  # noqa: E402
@@ -330,3 +336,69 @@ def test_clean_output_dir_and_write_binary_are_the_jax_ones(tmp_path):
         assert sorted(j.files) == sorted(t.files)
         for f in j.files:
             np.testing.assert_array_equal(t[f], j[f])
+
+
+@pytest.mark.parametrize("k", [1, 13, 16, 17, 32, 33, 97])
+def test_bits_helpers_are_the_jax_ones(k):
+    rng = np.random.default_rng(k)
+    for _ in range(20):
+        codes = rng.integers(0, 4, size=k).astype(np.uint8)
+        words = tbits.pack_kmer_words(codes, k)
+        assert words == jbits.pack_kmer_words(codes, k) and len(words) == tbits.num_words(k)
+        np.testing.assert_array_equal(tbits.unpack_kmer_words(words, k), codes)
+        np.testing.assert_array_equal(tbits.unpack_kmer_words(words, k),
+                                      jbits.unpack_kmer_words(words, k))
+        assert tbits.words_to_str(words, k) == jbits.words_to_str(words, k)
+        v = int(rng.integers(0, 1 << (2 * min(k, 20))))
+        assert tbits.reverse_complement_int(v, min(k, 20)) == jbits.reverse_complement_int(
+            v, min(k, 20))
+    with pytest.raises(ValueError):
+        tbits.pack_kmer_words(np.full(k, 4, np.uint8), k)
+
+
+def test_fasta_helpers_are_the_jax_ones(tmp_path):
+    for path in _write_inputs(tmp_path).values():
+        assert tfasta.total_bases(path) == jfasta.total_bases(path) > 0
+        assert tfasta.file_size(path) == jfasta.file_size(path) == os.path.getsize(path)
+    for seq in (b"ACGTNacgt", b"", b"TTTTRYKM"):
+        np.testing.assert_array_equal(tfasta.encode_read(seq), jfasta.encode_read(seq))
+
+
+@pytest.mark.parametrize("R,L", [(4, 64), (7, 300)])
+def test_batch_packers_are_the_jax_ones(tmp_path, R, L):
+    reads = [r.encode() for r in mixed_reads(R, n=30) if len(r) <= L]
+    reads[3] = tbits.encode_ascii(reads[3])  # an encoded read passes through
+    for t, j in ((tbatch.batch_codes, jbatch.batch_codes),
+                 (tbatch.batch_codes_dense, jbatch.batch_codes_dense)):
+        got, want = list(t(reads, R, L)), list(j(reads, R, L))
+        assert len(got) == len(want) > 1
+        for (gc, gn, gb), (wc, wn, wb) in zip(got, want):
+            np.testing.assert_array_equal(gc, wc)
+            assert (gn, gb) == (wn, wb)
+    with pytest.raises(ValueError):
+        list(tbatch.batch_codes([b"A" * (L + 1)], R, L))
+    for path in _write_inputs(tmp_path).values():
+        for seq_type in (0, 1):
+            for native in (None, False):
+                args = (path, seq_type, 28, R, L)
+                want = list(jbatch.batch_file(*args, use_native=native, dense=False))
+                got = list(tbatch.batch_file(*args, use_native=native, dense=False))
+                assert len(got) == len(want) > 1
+                for (gc, gn, gb), (wc, wn, wb) in zip(got, want):
+                    np.testing.assert_array_equal(gc, wc)
+                    assert (gn, gb) == (wn, wb)
+
+
+@pytest.mark.parametrize("eof", [True, False])
+def test_bin_readers_are_the_jax_ones(tmp_path, eof):
+    k = 28
+    words, counts, bins = _table(5, k, 300)
+    d = str(tmp_path / "out")
+    twriter.write_bin_files(d, words, counts, bins, k, eof_sentinel=eof)
+    got = twriter.read_output_dir(d)
+    assert got == jwriter.read_output_dir(d)
+    assert sum(len(v) for v in got.values()) == 300
+    assert sum(sum(v.values()) for v in got.values()) == int(counts.sum())
+    name = sorted(os.listdir(d))[0]
+    assert twriter.read_bin_file(os.path.join(d, name)) == jwriter.read_bin_file(
+        os.path.join(d, name))

@@ -6,9 +6,11 @@ device, on a 2-shard per-batch mesh and on a 2-shard streaming mesh, and
 with the HT engine on one device and the mesh, runs multiseq on one device
 and on the streaming mesh, and
 finds no jax, jaxlib, triton, fastkmer_tpu, fastkmer_tpu.* or root
-benchmarks module.  A second check reads the sources: no module of the port
-and not chip_smoke.py names fastkmer_tpu, jax or the root benchmarks package
-in an import (the port's own probes are fastkmer_tpu_torch.benchmarks)."""
+benchmarks, bench or __graft_entry__ module.  A second check reads the
+sources: no module of the port and not chip_smoke.py names fastkmer_tpu,
+jax or those root modules in an import (the port's own probes are
+fastkmer_tpu_torch.benchmarks, its bench and entry points
+fastkmer_tpu_torch.bench and .entry)."""
 
 import os
 import re
@@ -25,7 +27,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCRIPT = r"""
 import sys
 import fastkmer_tpu_torch
-from fastkmer_tpu_torch import api, cli, config, debug, pipeline
+from fastkmer_tpu_torch import api, bench, cli, config, debug, entry, pipeline
 from fastkmer_tpu_torch.core import bits, tbits
 from fastkmer_tpu_torch.ingest import batch, fasta, native, prefetch
 from fastkmer_tpu_torch.multiseq import distances as ms_distances
@@ -38,9 +40,10 @@ from fastkmer_tpu_torch.output import native as out_native
 from fastkmer_tpu_torch.parallel import driver, exchange, partitioner, stream
 from fastkmer_tpu_torch.utils import cudabuild, nativebuild, timing
 from fastkmer_tpu_torch.benchmarks import (compact_probe, cuda_bitonic_merge, cuda_probe,
-                                           distance_probe, e2e_file, ht_vs_sort, multiseq_probe,
-                                           primitives, resume_merge_probe, roofline,
-                                           split_merge_probe)
+                                           distance_probe, e2e, e2e_file, ht_vs_sort,
+                                           merge_probe, mesh_dedup_probe, multiseq_probe,
+                                           primitives, resume_merge_probe, roofline, skew,
+                                           split_merge_probe, stream_probe)
 
 fa = sys.argv[1]
 with open(fa, "w") as f:
@@ -70,7 +73,8 @@ assert merged[0].shape[0] == res.words.shape[0]
 assert cuda_extract.LAUNCHES == cuda_extract.FULL_LAUNCHES == cuda_sort.LAUNCHES == 0
 assert cuda_bitonic_merge.LAUNCHES == cuda_probe.COPY_LAUNCHES == cuda_probe.TRANSPOSE_LAUNCHES == 0
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "triton", "fastkmer_tpu", "benchmarks"))
+             if m.split(".")[0] in ("jax", "jaxlib", "triton", "fastkmer_tpu", "benchmarks",
+                                    "bench", "__graft_entry__"))
 assert not bad, bad
 print("OK", res.n_instances, len(res.counts))
 """
@@ -99,6 +103,7 @@ def test_port_sources_name_no_jax_package():
         with open(path) as f:
             for mod in _IMPORT.findall(f.read()):
                 name = (mod[0] or mod[1]).split(".")[0].rstrip(",")
-                if name in ("fastkmer_tpu", "jax", "jaxlib", "benchmarks"):
+                if name in ("fastkmer_tpu", "jax", "jaxlib", "benchmarks", "bench",
+                            "__graft_entry__"):
                     bad.append((os.path.relpath(path, REPO), mod))
     assert not bad, bad

@@ -572,3 +572,105 @@ def test_backend_rule_is_stated_not_a_fallback(monkeypatch):
             multihost.init_global_mesh()
     mesh = multihost.init_global_mesh(3, "cpu")
     assert (mesh.size, mesh.n_local, mesh.world, mesh.comm) == (3, 3, 1, None)
+
+
+@pytest.mark.parametrize("local_ranks", [1, 2, 4, 8])
+@pytest.mark.parametrize("n_cards", [1, 2, 4, 8])
+def test_local_cards_partition_the_host(local_ranks, n_cards):
+    """The placement rule: local rank r owns the cards c % ranks == r, a
+    partition of the host's cards when ranks <= cards; with more ranks
+    than cards each rank keeps its one card r % cards (the rule before
+    ranks spread)."""
+    from fastkmer_tpu_torch.parallel import multihost
+
+    owned = [multihost.local_cards(r, local_ranks, n_cards) for r in range(local_ranks)]
+    if local_ranks <= n_cards:
+        assert sorted(c for cards in owned for c in cards) == list(range(n_cards))
+        assert all(c % local_ranks == r for r, cards in enumerate(owned) for c in cards)
+        assert multihost.idle_cards(local_ranks, n_cards // local_ranks, n_cards) == 0
+    else:
+        assert owned == [(r % n_cards,) for r in range(local_ranks)]
+        assert multihost.idle_cards(local_ranks, 1, n_cards) == 0
+    assert all(cards for cards in owned)
+
+
+def test_host_layout_picks_the_backend():
+    """Ranks counted by hostname: two hosts of one card each get NCCL, two
+    ranks on one host of one card get gloo."""
+    import torch
+
+    from fastkmer_tpu_torch.parallel import multihost
+
+    cuda = torch.device("cuda")
+    for names, layouts, backend in ((["a", "b"], [(0, 1), (0, 1)], "nccl"),
+                                    (["a", "a"], [(0, 2), (1, 2)], "gloo")):
+        got = [multihost.host_layout(names, r) for r in range(len(names))]
+        assert got == layouts
+        assert {multihost.choose_backend(cuda, q, 1) for _, q in got} == {backend}
+    assert multihost.host_layout(["a", "b", "a", "b"], 3) == (1, 2)
+
+
+def test_idle_cards_warning(capsys):
+    from fastkmer_tpu_torch.parallel import multihost
+
+    multihost.warn_idle_cards(1, 1, 4)  # one rank, --mesh 1, on 4 cards
+    err = capsys.readouterr().err
+    assert err.count("\n") == 1 and "3 of this host's 4 cards get no shard" in err
+    assert multihost.idle_cards(2, 1, 4) == 2 and multihost.idle_cards(1, 3, 4) == 1
+    for args in ((1, 4, 4), (2, 2, 4), (4, 1, 2), (1, 8, 4)):
+        multihost.warn_idle_cards(*args)
+    assert capsys.readouterr().err == ""
+
+
+_HAND_WORKER = r"""
+import json, os, sys
+rank, port, port2, repo = int(sys.argv[1]), sys.argv[2], sys.argv[3], sys.argv[4]
+sys.path.insert(0, repo)
+import torch
+import torch.distributed as dist
+from fastkmer_tpu_torch.parallel import multihost
+for var in ("LOCAL_RANK", "LOCAL_WORLD_SIZE", "RANK", "WORLD_SIZE"):
+    os.environ.pop(var, None)
+res = {}
+multihost.init_distributed("localhost:" + port, 2, rank, device="cpu", timeout_s=30)
+mesh = multihost.init_global_mesh(2, "cpu")
+res["coordinator"] = dict(layout=list(multihost._layout), world=mesh.world, size=mesh.size,
+                          backend=dist.get_backend(),
+                          total=int(mesh.comm.reduce(torch.tensor([rank + 1]))[0]))
+dist.destroy_process_group()
+os.environ.update(RANK=str(rank), WORLD_SIZE="2", MASTER_ADDR="localhost", MASTER_PORT=port2)
+multihost.init_distributed(device="cpu", timeout_s=30)
+res["env"] = dict(layout=list(multihost._layout), world=multihost.world_size())
+dist.destroy_process_group()
+print("HAND", json.dumps(res), flush=True)
+"""
+
+
+def test_hand_launch_counts_its_hosts_ranks(tmp_path):
+    """Two gloo ranks started by hand, without LOCAL_WORLD_SIZE, through
+    ``coordinator_address`` and then through RANK/WORLD_SIZE/MASTER_*:
+    each counts the ranks of its host through the rendezvous store (both
+    on this host: local ranks 0 and 1 of 2) and the group works."""
+    script = tmp_path / "hand.py"
+    script.write_text(_HAND_WORKER)
+    ports = [str(_free_port()), str(_free_port())]
+    env = {**os.environ, "OMP_NUM_THREADS": "1"}
+    procs = [subprocess.Popen([sys.executable, str(script), str(r), *ports, REPO], env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    outs = []
+    for p in procs:
+        try:
+            outs.append(p.communicate(timeout=120)[0])
+        except subprocess.TimeoutExpired:
+            p.kill()
+            outs.append(p.communicate()[0] + "\n[killed at the timeout]")
+    res = []
+    for r, out in enumerate(outs):
+        line = [x for x in out.splitlines() if x.startswith("HAND ")]
+        assert line, f"rank {r} failed:\n{out[-3000:]}"
+        res.append(json.loads(line[0][5:]))
+    for r, got in enumerate(res):
+        assert got["coordinator"] == dict(layout=[r, 2], world=2, size=4, backend="gloo",
+                                          total=3)
+        assert got["env"] == dict(layout=[r, 2], world=2)

@@ -10,7 +10,10 @@
   built here as ``pl.pallas_call(..., interpret=True)`` at [256, 128] with
   0xFFFFFFFF entries (which wrap to 0).  Exact.
 * The ValueErrors where the JAX versions assert or their grids cannot run.
-* The probes end to end at small sizes on ``device="cpu"``.
+* The probes end to end at small sizes on ``device="cpu"``, the
+  bench-layer five (``e2e``, ``mesh_dedup_probe``, ``merge_probe``,
+  ``stream_probe``, ``skew``) included; the skew corpus is the JAX
+  probe's draw for draw.
 * The CPU twins of the two kernels' designs: D's merge path
   (``cuda_bitonic_merge.merge_path_twin``: partition, per-thread co-ranks,
   the A-first tie rule, at 64- and 256-row tiles) against the JAX merge
@@ -30,8 +33,8 @@ from jax.experimental import pallas as pl  # noqa: E402
 
 from benchmarks import pallas_bitonic_merge as pbm  # noqa: E402
 from fastkmer_tpu_torch.benchmarks import (  # noqa: E402
-    compact_probe, cuda_bitonic_merge, cuda_probe, primitives, resume_merge_probe, roofline,
-    split_merge_probe,
+    compact_probe, cuda_bitonic_merge, cuda_probe, e2e, merge_probe, mesh_dedup_probe,
+    primitives, resume_merge_probe, roofline, skew, split_merge_probe, stream_probe,
 )
 
 MERGE_CASES = [(1, 0, 1024, 4096), (2, 1, 1024, 8192), (3, 2, 1024, 2048)]
@@ -243,6 +246,49 @@ def test_yardstick_probes_on_cpu():
                               "searchsorted", "cumsum", "searchsorted_gather")]
 
 
+@pytest.fixture
+def one_thread():
+    """One torch thread: these probes run many small ops, which several
+    test workers' thread pools would otherwise fight over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def test_bench_layer_probes_on_cpu(one_thread):
+    """e2e, mesh_dedup_probe, merge_probe, stream_probe and skew at small
+    sizes: every field, the arms' and merges' equality checks inside."""
+    line = e2e.run(4, 2, 16, R=64, L=256, device="cpu")
+    assert line["metric"] == "e2e_stream_throughput_k28_m10" and line["value"] > 0
+    assert line["acc_cap"] == 1 << 16 and line["n_unique"] > 0 and line["device"] == "cpu"
+    line = mesh_dedup_probe.run(4, 64, 256, 1 << 12, 4, 2, device="cpu")
+    arms = line["arms"]
+    assert [a["n_dedup_batches"] for a in arms.values()] == [0, 1, 4]
+    assert len({a["uniques"] for a in arms.values()}) == 1
+    assert line["bytes_ratio_dedup_vs_raw"] == (arms["dedup"]["exchange_bytes"]
+                                                / arms["raw"]["exchange_bytes"])
+    line = merge_probe.run(1 << 15, 3000, 4000, iters=1, device="cpu")
+    assert line["merge_rows"] == 8 * 3000 + 4000 and line["device"] == "cpu"
+    assert all(line[f] > 0 for f in ("sort2_ms", "sort3_ms", "count_presentineled_ms",
+                                     "merge_ms", "merge_block_sort_ms"))
+    line = stream_probe.run(64, 256, 1 << 13, 4, device="cpu")
+    assert [len(r["dispatch_s"]) for r in line["reps"]] == [4, 4]
+    assert line["reps"][0]["n_unique"] == line["reps"][1]["n_unique"] > 0
+    line = skew.run(0.7, 32, 4, device="cpu")
+    assert line["lpt"]["imbalance"] <= line["hash"]["imbalance"]
+    assert line["placement"] == ["cpu"] * 4 and abs(sum(line["bins_hot_top8"])) <= 1
+
+
+def test_skew_corpus_is_the_jax_one():
+    from benchmarks import skew as jskew
+
+    for frac in (0.0, 0.7):
+        want = jskew.make_skewed_reads(np.random.default_rng(0), 32, 512, frac)
+        got = skew.make_skewed_reads(np.random.default_rng(0), 32, 512, frac)
+        np.testing.assert_array_equal(got, want)
+
+
 def test_probes_refuse_cuda_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("a card is present")
@@ -250,6 +296,9 @@ def test_probes_refuse_cuda_without_a_card():
         split_merge_probe.run(12, "cuda")
     with pytest.raises(RuntimeError):
         cuda_probe.run(14)
+    for probe in (e2e.run, mesh_dedup_probe.run, merge_probe.run, stream_probe.run, skew.run):
+        with pytest.raises(RuntimeError, match="is_available"):
+            probe()
 
 
 # --- the designs of kernels D (merge path) and E (swizzled transpose), on the CPU
