@@ -960,9 +960,10 @@ def multiseq_real(tmp: str) -> dict:
 
 def bench_entry_phase(cuda_extract) -> dict:
     """Phase 18: the bench at bench.py's full shapes in its default mode
-    (the line logged, the sanity checks held, kernel A once a batch at
-    least); every other mode at 4 batches of the dup workload, each table
-    equal to the default mode's on those batches; ``entry()`` on the card
+    (the line logged, the sanity checks held, kernel A once a batch in
+    the warm-up and the timed pass and once a count of the step line);
+    every other mode at 4 batches of the dup workload, each table equal to
+    the default mode's on those batches; ``entry()`` on the card
     equal to ``entry("cpu")`` on the same codes and ``dryrun_multichip(4)``
     equal to the CPU run's five numbers, each with kernel B launched.
     -> the phase's launches of A and B."""
@@ -977,8 +978,11 @@ def bench_entry_phase(cuda_extract) -> dict:
     log(f"[bench 18] bench: {json.dumps(rec)}")
     check(rec["metric"] == "stream_count_throughput_k28_m10" and rec["unit"] == "Gbp/s"
           and rec["value"] > 0 and rec["extra"]["step_gbps"] > 0, f"18: bench line {rec}")
-    check(a_default >= bench.NBATCH, f"18: {a_default} kernel A launches for {bench.NBATCH} "
-          "batches")
+    # one A a batch in the warm-up pass and in the timed pass (batch 0's
+    # dedup probe extracts once too), and one a count of the step line
+    want_a = 2 * bench.NBATCH + bench.STEP_WARMUPS + bench.STEP_ITERS
+    check(a_default == want_a, f"18: {a_default} kernel A launches in the default bench run, "
+          f"{want_a} expected: one a batch in each of its two passes and one a step")
     _, ref = bench.run("stream", dup=True, n_batch=4)
     for mode in bench.MODES[1:]:
         mrec, table = bench.run(mode, dup=True, n_batch=4)

@@ -48,22 +48,23 @@ import torch
 from . import pipeline
 from .ops import count_sort
 
-# The port's first medians of three standalone runs of each mode
-# (tools/measure_bench_layer.py) on NVIDIA H100 80GB HBM3, 700.00 W
-# (nvidia-smi name, power limit); none of the repository's TPU numbers
-# applies to the port.  A metric without an entry prints vs_baseline null.
+# The port's medians of three standalone runs of each mode
+# (tools/measure_bench_layer.py --reps 3) on NVIDIA H100 80GB HBM3,
+# 700.00 W (nvidia-smi name, power limit); none of the repository's TPU
+# numbers applies to the port.  A metric without an entry prints
+# vs_baseline null.
 BASELINE_DEVICE = "NVIDIA H100 80GB HBM3, 700.00 W"
 BASELINE_GBPS: dict[str, float] = {
-    "stream_count_throughput_k28_m10": 2.1132399637668002,
-    "count_step_throughput_k28_m10": 3.8113391206256892,
-    "stream_percount_throughput_k28_m10": 1.4282342796755574,
-    "stream_adaptive_throughput_k28_m10": 0.605510184068101,
-    "stream_forced_throughput_k28_m10": 0.5102776998627621,
-    "stream_raw_throughput_k28_m10": 0.607149011113949,
-    "stream_count_throughput_k28_m10_dup": 2.3842071085744028,
-    "stream_dedup_throughput_k28_m10_dup": 2.134431853348509,
-    "stream_adaptive_throughput_k28_m10_dup": 1.7443546842825532,
-    "stream_forced_throughput_k28_m10_dup": 1.7408291256049435,
+    "stream_count_throughput_k28_m10": 2.1150836127727892,
+    "count_step_throughput_k28_m10": 3.841258361446677,
+    "stream_percount_throughput_k28_m10": 1.4437386178747171,
+    "stream_adaptive_throughput_k28_m10": 0.6358105019657581,
+    "stream_forced_throughput_k28_m10": 0.4876871746955463,
+    "stream_raw_throughput_k28_m10": 0.6066912419049895,
+    "stream_count_throughput_k28_m10_dup": 2.3841127935006545,
+    "stream_dedup_throughput_k28_m10_dup": 2.13584382882218,
+    "stream_adaptive_throughput_k28_m10_dup": 1.6955464238760891,
+    "stream_forced_throughput_k28_m10_dup": 1.638861870165804,
 }
 
 K, M, B = 28, 10, 512
@@ -74,6 +75,7 @@ NBATCH = 16  # 268 Mbp, about 16x coverage
 FANIN = 16
 FULL_SHAPE = (R, L, NBATCH, FANIN)  # the baselines' workload
 PROBE_EVERY = 16  # the adaptive controller's probe cadence (count_batches)
+STEP_WARMUPS, STEP_ITERS = 2, 5  # the step line's untimed and timed counts
 MODES = ("stream", "step", "percount", "dedup", "adaptive", "forced", "raw")
 CONTROLLER = {"adaptive": None, "forced": True, "raw": False}
 
@@ -102,13 +104,6 @@ def stage(batches: list, dev: torch.device) -> list[torch.Tensor]:
     return staged
 
 
-def _dcap(codes: torch.Tensor, k: int) -> int:
-    """The dedup step's compaction capacity: npos / 4, npos rounded up to
-    a 64Ki granule (count_batches')."""
-    npos = codes.shape[0] * (codes.shape[1] - k + 1)
-    return (npos + (-npos % (1 << 16))) // 4
-
-
 def feed(acc: pipeline.DeviceAccumulator, staged: list, mode: str) -> dict:
     """One pass of ``mode`` over ``staged`` into ``acc``, ended by the one
     fence: the last merge, the stats read and a synchronize.  -> stats
@@ -117,19 +112,20 @@ def feed(acc: pipeline.DeviceAccumulator, staged: list, mode: str) -> dict:
     k, m, b = acc.k, acc.m, acc.B
     pre_over = torch.zeros((), dtype=torch.int64, device=acc.device)
     for i, codes in enumerate(staged):
+        dcap = pipeline._dedup_cap(codes.shape[0] * (codes.shape[1] - k + 1))
         if mode == "stream" and i % PROBE_EVERY == 0:
             # the adaptive controller's probe is a dedup attempt; at this
             # workload's distinct ratio it overflows and the batch goes in
             # as its retained raw columns, so both dispatches are timed
             _dc, _dw, _nu, over, raw_cols = pipeline._batch_count_dedup(
-                codes, k, m, b, _dcap(codes, k))
+                codes, k, m, b, dcap)
             pre_over += over > 0
             acc.add_raw(raw_cols)
         elif mode == "percount":
             acc.add(pipeline._batch_count_sorted(codes, k, m, b))
         elif mode == "dedup":
             dcols, dwts, _nu, over, _raw = pipeline._batch_count_dedup(
-                codes, k, m, b, _dcap(codes, k))
+                codes, k, m, b, dcap)
             pre_over += over
             acc.add_part(dcols, dwts)
         else:
@@ -181,17 +177,18 @@ def _sync_step(sc: count_sort.SortedCounts) -> None:
     sc.counts[:8].cpu()
 
 
-def run_step(staged: list, iters: int = 5) -> float:
+def run_step(staged: list) -> float:
     """Gbp/s of the per-batch count step (kernel A + count_presentineled)
-    on the first batch: two warm-ups, then ``iters`` steps fenced once."""
+    on the first batch: STEP_WARMUPS warm-ups, then STEP_ITERS steps
+    fenced once."""
     codes = staged[0]
-    for _ in range(2):
+    for _ in range(STEP_WARMUPS):
         _sync_step(pipeline._batch_count_sorted(codes, K, M, B))
     t0 = time.perf_counter()
-    for _ in range(iters):
+    for _ in range(STEP_ITERS):
         sc = pipeline._batch_count_sorted(codes, K, M, B)
     _sync_step(sc)
-    return codes.numel() * iters / (time.perf_counter() - t0) / 1e9
+    return codes.numel() * STEP_ITERS / (time.perf_counter() - t0) / 1e9
 
 
 def run_controller(staged: list, prededup, genome: int):
@@ -218,7 +215,7 @@ def metric_name(mode: str, dup: bool) -> str:
 
 def run(mode: str = "stream", dup: bool = False, R: int = R, L: int = L,
         n_batch: int = NBATCH, genome: int | None = None, fanin: int = FANIN,
-        device="cuda", seed: int = 0) -> tuple[dict, tuple | None]:
+        device="cuda") -> tuple[dict, tuple | None]:
     """One bench line for ``mode`` -> (the JSON record, the final table
     (words, counts, bins) on the host, None for ``step``).  The defaults
     are bench.py's workload; smaller sizes serve the tests."""
@@ -228,7 +225,7 @@ def run(mode: str = "stream", dup: bool = False, R: int = R, L: int = L,
     if genome is None:
         genome = DUP_GENOME if dup else GENOME
     log(f"generating and staging {n_batch} batches of [{R}, {L}] from a {genome}-base genome")
-    staged = stage(make_batches(np.random.default_rng(seed), R, L, n_batch, genome), dev)
+    staged = stage(make_batches(np.random.default_rng(0), R, L, n_batch, genome), dev)
     extra = None
     table = None
     if mode == "step":

@@ -14,8 +14,7 @@ timed after a warm-up (CUDA events on the card):
 ``sort_share`` is the 2-lane sort's share of the default merge; the
 question it answers: could kernel C's route take the merge's own sort?
 
-    python -m fastkmer_tpu_torch.benchmarks.merge_probe [--rows N] [--part P] [--table T]
-        [--device cuda|cpu]
+    python -m fastkmer_tpu_torch.benchmarks.merge_probe [--device cuda|cpu]
 """
 
 from __future__ import annotations
@@ -70,12 +69,8 @@ def run(n_rows: int = N_ROWS, part: int = PART, table: int = TABLE, iters: int =
 
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--rows", type=int, default=N_ROWS)
-    p.add_argument("--part", type=int, default=PART)
-    p.add_argument("--table", type=int, default=TABLE)
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
-    a = p.parse_args(argv)
-    run(a.rows, a.part, a.table, device=a.device)
+    run(device=p.parse_args(argv).device)
 
 
 if __name__ == "__main__":

@@ -8,9 +8,10 @@ repeat's minimizers; the rest are uniform random.  For each owner map
 (hash, then LPT from the pre-pass histogram):
 
 * ``imbalance``: the fullest shard's instance load over the mean load;
-* ``step_ms``: one streaming step (a feed and its merge) of the whole read
-  set on the ``--mesh``-shard mesh, after a warm-up step; on a one-card
-  machine every shard sits on that card (``placement`` lists them).
+* ``step_ms``: the median of STEPS streaming steps (a feed and its merge)
+  of the whole read set on the ``--mesh``-shard mesh, after a warm-up
+  step, each timed alone (``steps_ms``); on a one-card machine every shard
+  sits on that card (``placement`` lists them).
 
     python -m fastkmer_tpu_torch.benchmarks.skew [repeat_frac] [n_reads] [--mesh 8]
         [--device cuda|cpu]
@@ -28,6 +29,7 @@ from ..pipeline import resolve_device
 from ._common import device_name, emit, fence
 
 K, M, B, L = 28, 10, 512, 512
+STEPS = 5  # timed steps a map: one step of this small corpus is a few ms
 
 
 def make_skewed_reads(rng, n_reads: int, L: int, repeat_frac: float) -> np.ndarray:
@@ -63,12 +65,14 @@ def run(repeat_frac: float = 0.7, n_reads: int = 256, n: int = 8, device="cuda")
         ctr.check()  # warm-up
         for d in mesh.devices:
             fence(d)
-        t0 = time.perf_counter()
-        ctr.feed(codes)
-        ctr.check()  # reads the counters: waits for the step
-        dt = time.perf_counter() - t0
+        steps = []
+        for _ in range(STEPS):
+            t0 = time.perf_counter()
+            ctr.feed(codes)
+            ctr.check()  # reads the counters: waits for the step
+            steps.append((time.perf_counter() - t0) * 1e3)
         out[name] = {"imbalance": float(stats["imbalance"]), "cap": int(cap),
-                     "step_ms": dt * 1e3}
+                     "step_ms": float(np.median(steps)), "steps_ms": steps}
     out["imbalance_ratio_hash_over_lpt"] = (out["hash"]["imbalance"]
                                             / max(out["lpt"]["imbalance"], 1e-9))
     out["device"] = device_name(dev)

@@ -9,7 +9,7 @@ dispatch queues the merge), each dispatch's host seconds, the host seconds
 of the whole feed and of the fence (the stats read) after it.  A dispatch
 that returns long before the fence has only queued its work.
 
-    python -m fastkmer_tpu_torch.benchmarks.stream_probe [--batches 8] [--device cuda|cpu]
+    python -m fastkmer_tpu_torch.benchmarks.stream_probe [--device cuda|cpu]
 """
 
 from __future__ import annotations
@@ -70,10 +70,8 @@ def run(R: int = bench.R, L: int = bench.L, genome: int = bench.GENOME, n_batch:
 
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--batches", type=int, default=8)
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
-    a = p.parse_args(argv)
-    run(n_batch=a.batches, device=a.device)
+    run(device=p.parse_args(argv).device)
 
 
 if __name__ == "__main__":

@@ -92,8 +92,19 @@ def host_layout(hostnames: list, rank: int) -> tuple[int, int]:
     return same.index(rank), len(same)
 
 
-# (local rank, ranks on this host) of this process, set by init_distributed
-_layout: tuple[int, int] | None = None
+# (the default group init_distributed started, local rank, ranks on this
+# host); read through host_position, which ignores the layout of a group
+# that has since been destroyed
+_layout: tuple[object, int, int] | None = None
+
+
+def host_position() -> tuple[int, int] | None:
+    """(local rank, ranks on this host) of this process when
+    ``init_distributed`` started the live default group, else None (no
+    group, or one started by other means after that group was destroyed)."""
+    if _layout is None or not dist.is_initialized() or _layout[0] is not dist.group.WORLD:
+        return None
+    return _layout[1], _layout[2]
 
 
 def _env_int(name: str) -> int | None:
@@ -168,7 +179,7 @@ def init_distributed(coordinator_address: str | None = None,
         torch.cuda.set_device(local_cards(local_rank, local_ranks, n_cards)[0])
     rendezvous = {"init_method": init_method} if store is None else {"store": store}
     dist.init_process_group(backend, world_size=world, rank=rank, timeout=timeout, **rendezvous)
-    _layout = (local_rank, local_ranks)
+    _layout = (dist.group.WORLD, local_rank, local_ranks)
     if rank == 0:
         why = ("CPU tensors" if dev.type == "cpu" else
                f"{local_ranks} ranks on {n_cards} card(s): "
@@ -288,12 +299,13 @@ def init_global_mesh(local_shards: int | None = None, device="cuda"):
     r = rank()
     devices = (dev,) * n_local
     if dev.type == "cuda":
-        if _layout is None:  # a group that init_distributed did not start
+        layout = host_position()
+        if layout is None:  # a group that init_distributed did not start
             cards = (torch.cuda.current_device(),)
         else:
-            cards = local_cards(*_layout, n_cards)
+            cards = local_cards(*layout, n_cards)
             if r == 0:
-                warn_idle_cards(_layout[1], n_local, n_cards)
+                warn_idle_cards(layout[1], n_local, n_cards)
         devices = tuple(torch.device("cuda", cards[j % len(cards)]) for j in range(n_local))
         dev = devices[0]
     staging = "direct"

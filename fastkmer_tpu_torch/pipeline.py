@@ -139,6 +139,12 @@ def _batch_count_ht(codes: torch.Tensor, coll: torch.Tensor, k: int, m: int, B: 
     return (words, counts, binhash.bins_from_words(words, k, m, B)), coll | batch_coll
 
 
+def _dedup_cap(npos: int) -> int:
+    """The dedup step's compaction capacity for a batch of ``npos``
+    windows: npos / 4, npos rounded up to a 64Ki granule."""
+    return (npos + (-npos % (1 << 16))) // 4
+
+
 def _batch_count_dedup(codes: torch.Tensor, k: int, m: int, B: int, cap: int):
     """Pre-dedup step for duplication-heavy inputs: count the batch and
     compact its unique rows to ``cap``.  Returns (ccols, wts, n_u, over,
@@ -550,9 +556,8 @@ def count_batches(
                 dpart, coll = _batch_count_ht(codes_t, coll, k, m, B)
             elif acc is not None and (dedup_mode or probe):
                 npos = codes.shape[0] * (codes.shape[1] - k + 1)
-                dcap = (npos + (-npos % (1 << 16))) // 4
                 dcols, dwts, d_nu, d_over, d_raw = _batch_count_dedup(
-                    codes_t, k, m, B, dcap
+                    codes_t, k, m, B, _dedup_cap(npos)
                 )
             elif acc is not None:
                 cols = _batch_extract_keys(codes_t, k, m, B, flagged)

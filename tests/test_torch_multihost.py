@@ -634,16 +634,41 @@ for var in ("LOCAL_RANK", "LOCAL_WORLD_SIZE", "RANK", "WORLD_SIZE"):
 res = {}
 multihost.init_distributed("localhost:" + port, 2, rank, device="cpu", timeout_s=30)
 mesh = multihost.init_global_mesh(2, "cpu")
-res["coordinator"] = dict(layout=list(multihost._layout), world=mesh.world, size=mesh.size,
-                          backend=dist.get_backend(),
+res["coordinator"] = dict(layout=list(multihost.host_position()), world=mesh.world,
+                          size=mesh.size, backend=dist.get_backend(),
                           total=int(mesh.comm.reduce(torch.tensor([rank + 1]))[0]))
 dist.destroy_process_group()
 os.environ.update(RANK=str(rank), WORLD_SIZE="2", MASTER_ADDR="localhost", MASTER_PORT=port2)
 multihost.init_distributed(device="cpu", timeout_s=30)
-res["env"] = dict(layout=list(multihost._layout), world=multihost.world_size())
+res["env"] = dict(layout=list(multihost.host_position()), world=multihost.world_size())
 dist.destroy_process_group()
 print("HAND", json.dumps(res), flush=True)
 """
+
+
+def test_layout_belongs_to_its_group(monkeypatch):
+    """The layout init_distributed records serves only the group it
+    started: once that group is destroyed, a group started by other means
+    finds none, and init_global_mesh places shards as for such a group."""
+    import torch.distributed as dist
+
+    from fastkmer_tpu_torch.parallel import multihost
+
+    for var in ("LOCAL_RANK", "LOCAL_WORLD_SIZE"):
+        monkeypatch.delenv(var, raising=False)
+    assert multihost.host_position() is None
+    try:
+        multihost.init_distributed(f"localhost:{_free_port()}", 1, 0, device="cpu",
+                                   timeout_s=30)
+        assert multihost.host_position() == (0, 1)
+        dist.destroy_process_group()
+        assert multihost.host_position() is None
+        dist.init_process_group("gloo", init_method=f"tcp://localhost:{_free_port()}",
+                                world_size=1, rank=0)
+        assert multihost.host_position() is None
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 def test_hand_launch_counts_its_hosts_ranks(tmp_path):

@@ -2,7 +2,6 @@
 one CUDA card, with the median of each number.
 
     python3 tools/measure_bench_layer.py [--reps 3] [--out build/bench_layer]
-        [--only bench,e2e,mesh_dedup,merge,stream,skew]
 
 Each run is its own process, as a user would start it:
 
@@ -46,14 +45,11 @@ PROBES = {
 }
 
 
-def commands(only: set) -> list[tuple[str, list]]:
-    out = []
-    if "bench" in only:
-        out += [(f"bench {m}", ["-m", "fastkmer_tpu_torch.bench", m]) for m in BENCH_MODES]
-        out += [(f"bench {m} dup", ["-m", "fastkmer_tpu_torch.bench", m, "dup"])
-                for m in BENCH_DUP_MODES]
-    out += [(name, argv) for name, argv in PROBES.items() if name in only]
-    return out
+def commands() -> list[tuple[str, list]]:
+    return ([(f"bench {m}", ["-m", "fastkmer_tpu_torch.bench", m]) for m in BENCH_MODES]
+            + [(f"bench {m} dup", ["-m", "fastkmer_tpu_torch.bench", m, "dup"])
+               for m in BENCH_DUP_MODES]
+            + list(PROBES.items()))
 
 
 def numbers(name: str, rec: dict) -> dict:
@@ -94,7 +90,6 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--reps", type=int, default=3)
     p.add_argument("--out", default=os.path.join(REPO, "build", "bench_layer"))
-    p.add_argument("--only", default="bench," + ",".join(PROBES))
     args = p.parse_args(argv)
     os.makedirs(args.out, exist_ok=True)
     logf = open(os.path.join(args.out, "bench_layer.log"), "w")
@@ -109,7 +104,7 @@ def main(argv=None) -> int:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True, timeout=60).stdout.strip()
     say(f"card: {smi}")
-    cmds = commands(set(args.only.split(",")))
+    cmds = commands()
     values: dict[str, list] = {}
     failed = 0
     t_all = time.perf_counter()
