@@ -7,9 +7,9 @@ source, started together) and drives the port's three paths: the
 single-chip sort-engine count job, the per-batch mesh count job with
 super-k-mer transport, and the streaming mesh counter (the default of
 ``--mesh N``); the HT engine on the single device and the mesh; resume,
-repair and traces; the probe scripts that run kernels D and E
-(``fastkmer_tpu_torch.benchmarks``); multiseq (``--multiseq``) on
-the single device and the streaming mesh; the mesh across processes
+repair and traces; the probe scripts (``fastkmer_tpu_torch.benchmarks``),
+those that run kernels D and E and those of kernels A, B and C; multiseq
+(``--multiseq``) on the single device and the streaming mesh; the mesh across processes
 (``parallel.multihost`` on ``torch.distributed``); and the bench and entry
 layer (the bench, ``entry()`` and the multichip dry run).  Each phase raises on
 failure, so the process exits non-zero:
@@ -111,7 +111,13 @@ failure, so the process exits non-zero:
    to 0 before it and its kernel launched: ``e2e`` (A), ``mesh_dedup_probe``
    (B; its three arms' tables equal), ``merge_probe`` (C, in its
    block-sort arm; that merge equal to the default one), ``stream_probe``
-   (A) and ``skew`` (B);
+   (A) and ``skew`` (B); then the probes of kernels A, B and C, each
+   likewise: ``bigk_probe.run(R=64)`` (A at every k of its list; its
+   plain arms launch no A, its kernel arms do, and the arms' counts are
+   equal), ``smer_pallas_probe.run(iters=1, R=64)`` (B in its kernel arm
+   only; the arms' tables equal, nothing dropped),
+   ``pallas_sort_probe.run(20, [1 << 15])`` (C; exact on 2^18 rows) and
+   ``scaling.run()`` (B; mesh sizes 1-8 on the card, nothing dropped);
 11. the HT engine (useHT=1) on the single device at phase 5's workload:
    kernel A once a batch and B never, the manifest, the instance count,
    ascending files, and bin files equal to phase 5's with each trailing
@@ -1031,6 +1037,8 @@ def main() -> int:
         from fastkmer_tpu_torch.benchmarks import resume_merge_probe, split_merge_probe
         from fastkmer_tpu_torch.benchmarks import e2e, merge_probe, mesh_dedup_probe
         from fastkmer_tpu_torch.benchmarks import skew, stream_probe
+        from fastkmer_tpu_torch.benchmarks import bigk_probe, pallas_sort_probe, scaling
+        from fastkmer_tpu_torch.benchmarks import smer_pallas_probe
         from fastkmer_tpu_torch.benchmarks._common import HBM_BYTES_PER_S, rand_i32, time_ms
         from fastkmer_tpu_torch.core.tbits import pair_key
         from fastkmer_tpu_torch.ops import count_sort, cuda_extract, cuda_sort, extract
@@ -1784,26 +1792,55 @@ def main() -> int:
     for name in ("multisequence.SquaredEuclidean", "multisequence.KLDLog2"):
         for line in distance_probe.run(name):  # raises past 1e-4 relative
             log(f"[probes] distance_probe {json.dumps(line)}")
-    # the bench-layer probes at small sizes, each with its kernel
+    def arms_check(name: str, lines: list) -> None:
+        """Each plain arm launched no kernel, each kernel arm did."""
+        arms = [x for x in lines if "arm" in x]
+        check(arms and all((x["kernel_launches"] > 0) == (x["arm"] == "kernel") for x in arms),
+              f"{name}: launches by arm {[(x['arm'], x['kernel_launches']) for x in arms]}")
+
+    def bigk_check(lines: list) -> None:
+        arms_check("bigk_probe", lines)
+        check(sorted({x["k"] for x in lines if x["arm"] == "kernel"})
+              == sorted(k for k, _ in bigk_probe.KMS), "bigk_probe: a k has no kernel arm")
+
+    def sort_check(lines: list) -> None:
+        check(lines[0]["keys_ok"] and lines[0]["vals_multiset_ok"]
+              and lines[0]["rows"] == pallas_sort_probe.NV, f"pallas_sort_probe: {lines[0]}")
+
+    def scaling_check(lines: list) -> None:
+        check([x["mesh"] for x in lines] == list(scaling.MESH_SIZES)
+              and all(x["dropped"] == 0 for x in lines), "scaling: a mesh size dropped rows")
+
+    # the bench-layer probes and the probes of kernels A, B and C at small
+    # sizes, each with its kernel (and its own check of the lines)
     layer_probes = (
-        ("e2e", lambda: e2e.run(4, 4, 26), "A"),
-        ("mesh_dedup_probe", lambda: mesh_dedup_probe.run(4, 1024, 1024, 1 << 18, 4, 4), "B"),
-        ("merge_probe", lambda: merge_probe.run(1 << 23, 1 << 20, 1 << 20, iters=3), "C"),
-        ("stream_probe", lambda: stream_probe.run(n_batch=4), "A"),
-        ("skew", lambda: skew.run(), "B"),
+        ("e2e", lambda: e2e.run(4, 4, 26), "A", None),
+        ("mesh_dedup_probe", lambda: mesh_dedup_probe.run(4, 1024, 1024, 1 << 18, 4, 4), "B",
+         None),
+        ("merge_probe", lambda: merge_probe.run(1 << 23, 1 << 20, 1 << 20, iters=3), "C", None),
+        ("stream_probe", lambda: stream_probe.run(n_batch=4), "A", None),
+        ("skew", lambda: skew.run(), "B", None),
+        ("bigk_probe", lambda: bigk_probe.run(R=64), "A", bigk_check),
+        ("smer_pallas_probe", lambda: smer_pallas_probe.run(iters=1, R=64), "B",
+         lambda lines: arms_check("smer_pallas_probe", lines)),
+        ("pallas_sort_probe", lambda: pallas_sort_probe.run(20, [1 << 15]), "C", sort_check),
+        ("scaling", lambda: scaling.run(), "B", scaling_check),
     )
     probe_launches = {}
-    for name, fn, kernel in layer_probes:
+    for name, fn, kernel, check_lines in layer_probes:
         cuda_extract.LAUNCHES = cuda_extract.FULL_LAUNCHES = cuda_sort.LAUNCHES = 0
+        t_probe = time.perf_counter()
         line = fn()
         n = {"A": cuda_extract.LAUNCHES, "B": cuda_extract.FULL_LAUNCHES,
              "C": cuda_sort.LAUNCHES}[kernel]
         check(n > 0, f"{name} launched no kernel {kernel}")
+        if check_lines is not None:
+            check_lines(line)
         probe_launches[name] = n
-        log(f"[probes] {name}: {json.dumps(line)}")
+        log(f"[probes] {name} ({time.perf_counter() - t_probe:.2f} s): {json.dumps(line)}")
     log(f"[probes] bitonic merge launches: split_merge {split_launches}, resume_merge "
         f"{resume_launches}; pass launches: copy {copy_launches}, transpose {tr_launches}; "
-        f"bench-layer probes' kernel launches {probe_launches}; "
+        f"bench-layer and kernel probes' launches {probe_launches}; "
         f"phase 10 {time.perf_counter() - t10:.2f} s")
 
     # --- 14-16. multiseq: small, cuda against cpu; at real size on the

@@ -311,13 +311,23 @@ def build_distributed_count_smer(mesh: Mesh, k: int, m: int, B: int, cap: int, s
     counts records per (source, destination) pair; unfilled slots carry
     n_kmers = 0, so no ok lane ships.  ``use_ht`` as in
     build_distributed_count."""
+    return _build_count_smer(mesh, k, m, B, cap, smax, owner_map, use_ht,
+                             cuda_extract.extract_full)
+
+
+def _build_count_smer(mesh: Mesh, k: int, m: int, B: int, cap: int, smax: int,
+                      owner_map: np.ndarray, use_ht: bool, extract_fn):
+    """build_distributed_count_smer with its stage-1 extractor
+    ``extract_fn(codes, k, m, B) -> extract.Extracted`` as an argument: the
+    public step passes kernel B's wrapper; ``smer_pallas_probe`` passes the
+    plain ``extract.extract`` to time the step without the kernel."""
     n = mesh.size
     count_owned = _count_owned_ht if use_ht else _count_owned
     owner_tabs = _owner_tables(mesh, owner_map)
     PW = superkmer.payload_words(smax)
 
     def route(s: int, codes: torch.Tensor):
-        ex = cuda_extract.extract_full(codes, k, m, B)
+        ex = extract_fn(codes, k, m, B)
         sk, _ = superkmer.group(codes, k, m, B, smax, ex=ex)
         owner = owner_tabs[s][sk.bins]
         cols = tuple(sk.payload[:, w] for w in range(PW)) + (sk.n_kmers,)

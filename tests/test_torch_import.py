@@ -39,11 +39,12 @@ from fastkmer_tpu_torch.output import manifest, writer
 from fastkmer_tpu_torch.output import native as out_native
 from fastkmer_tpu_torch.parallel import driver, exchange, partitioner, stream
 from fastkmer_tpu_torch.utils import cudabuild, nativebuild, timing
-from fastkmer_tpu_torch.benchmarks import (compact_probe, cuda_bitonic_merge, cuda_probe,
-                                           distance_probe, e2e, e2e_file, ht_vs_sort,
-                                           merge_probe, mesh_dedup_probe, multiseq_probe,
-                                           primitives, resume_merge_probe, roofline, skew,
-                                           split_merge_probe, stream_probe)
+from fastkmer_tpu_torch.benchmarks import (bigk_probe, compact_probe, cuda_bitonic_merge,
+                                           cuda_probe, distance_probe, e2e, e2e_file,
+                                           ht_vs_sort, merge_probe, mesh_dedup_probe,
+                                           multiseq_probe, pallas_sort_probe, primitives,
+                                           resume_merge_probe, roofline, scaling, skew,
+                                           smer_pallas_probe, split_merge_probe, stream_probe)
 
 fa = sys.argv[1]
 with open(fa, "w") as f:

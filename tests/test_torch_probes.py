@@ -33,8 +33,9 @@ from jax.experimental import pallas as pl  # noqa: E402
 
 from benchmarks import pallas_bitonic_merge as pbm  # noqa: E402
 from fastkmer_tpu_torch.benchmarks import (  # noqa: E402
-    compact_probe, cuda_bitonic_merge, cuda_probe, e2e, merge_probe, mesh_dedup_probe,
-    primitives, resume_merge_probe, roofline, skew, split_merge_probe, stream_probe,
+    bigk_probe, compact_probe, cuda_bitonic_merge, cuda_probe, e2e, merge_probe,
+    mesh_dedup_probe, pallas_sort_probe, primitives, resume_merge_probe, roofline, scaling,
+    skew, smer_pallas_probe, split_merge_probe, stream_probe,
 )
 
 MERGE_CASES = [(1, 0, 1024, 4096), (2, 1, 1024, 8192), (3, 2, 1024, 2048)]
@@ -296,7 +297,8 @@ def test_probes_refuse_cuda_without_a_card():
         split_merge_probe.run(12, "cuda")
     with pytest.raises(RuntimeError):
         cuda_probe.run(14)
-    for probe in (e2e.run, mesh_dedup_probe.run, merge_probe.run, stream_probe.run, skew.run):
+    for probe in (e2e.run, mesh_dedup_probe.run, merge_probe.run, stream_probe.run, skew.run,
+                  bigk_probe.run, smer_pallas_probe.run, pallas_sort_probe.run, scaling.run):
         with pytest.raises(RuntimeError, match="is_available"):
             probe()
 

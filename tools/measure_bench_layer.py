@@ -13,9 +13,16 @@ Each run is its own process, as a user would start it:
 * ``python -m fastkmer_tpu_torch.benchmarks.e2e`` (8 batches, fan-in 8,
   a 2^27-row table);
 * ``mesh_dedup_probe --n 4`` at the bench's dup workload (2^21 genome);
-* ``merge_probe`` (150,994,944 rows), ``stream_probe``, ``skew --mesh 8``.
+* ``merge_probe`` (150,994,944 rows), ``stream_probe``, ``skew --mesh 8``;
+* the probes of kernels A, B and C at the JAX probes' defaults:
+  ``bigk_probe`` (k = 28-201 on [1024, 4096]), ``smer_pallas_probe``,
+  ``pallas_sort_probe`` (2^24 rows, blocks of 2^15-2^17) and ``scaling``
+  (64 reads of 1024 bases a shard), then ``scaling 1024 4096`` (at four
+  shards one [4096, 4096] batch, the bench's batch shape).
 
-``--reps`` rounds, each running every command once in the order above.
+``--reps`` rounds, each running every command once in the order above;
+``--only`` keeps the commands named (``bench stream``, ``e2e``,
+``scaling_4096``, ...; comma-separated).
 The card's name and power limit (nvidia-smi) head the log; every JSON line
 a run prints is kept, then the medians per measure are printed.  A run that
 fails is reported with its stderr's tail and makes the exit code 1, after
@@ -42,6 +49,11 @@ PROBES = {
     "merge": ["-m", "fastkmer_tpu_torch.benchmarks.merge_probe"],
     "stream": ["-m", "fastkmer_tpu_torch.benchmarks.stream_probe"],
     "skew": ["-m", "fastkmer_tpu_torch.benchmarks.skew", "--mesh", "8"],
+    "bigk": ["-m", "fastkmer_tpu_torch.benchmarks.bigk_probe"],
+    "smer": ["-m", "fastkmer_tpu_torch.benchmarks.smer_pallas_probe"],
+    "block_sort": ["-m", "fastkmer_tpu_torch.benchmarks.pallas_sort_probe"],
+    "scaling": ["-m", "fastkmer_tpu_torch.benchmarks.scaling"],
+    "scaling_4096": ["-m", "fastkmer_tpu_torch.benchmarks.scaling", "1024", "4096"],
 }
 
 
@@ -52,8 +64,34 @@ def commands() -> list[tuple[str, list]]:
             + list(PROBES.items()))
 
 
-def numbers(name: str, rec: dict) -> dict:
-    """The numbers of one JSON line that PERF.md reads, by measure name."""
+def numbers(name: str, recs: list) -> dict:
+    """The numbers that PERF.md reads from a run's JSON lines, by command
+    name (most commands' last line holds them all)."""
+    rec = recs[-1]
+    if name == "bigk":
+        got = {}
+        for r in recs:
+            got.update({f"bigk.k{r['k']}.{r['arm']}.ms": r["ms"],
+                        f"bigk.k{r['k']}.{r['arm']}.gbps": r["gbps"]})
+            if r["arm"] == "kernel":
+                got.update({f"bigk.k{r['k']}.kernel_ms": r["kernel_ms"],
+                            f"bigk.k{r['k']}.bound_share": r["bound_share"]})
+        return got
+    if name == "smer":
+        got = {f"smer.{r['arm']}.{f}": r[f] for r in recs[:-1] for f in ("ms", "gbps")}
+        got["smer.speedup_kernel_over_plain"] = rec["speedup_kernel_over_plain"]
+        return got
+    if name == "block_sort":
+        got = {}
+        for r in recs[1:]:
+            fields = (("marginal_ms", "naive_ms", "kernel_ms", "bound_share")
+                      if r["measure"].startswith("block_sort") else ("marginal_ms", "ms"))
+            got.update({f"{r['measure']}.{f}": r[f] for f in fields})
+        return got
+    if name.startswith("scaling"):
+        return {f"{name}.n{r['mesh']}.{f}": r[f] for r in rec["summary"]
+                for f in ("step_ms", "gbps", "exchange_bytes", "exchange_bytes_worstcase",
+                          "scaling_efficiency") if f in r}
     if name.startswith("bench"):
         got = {rec["metric"]: rec["value"]}
         if "extra" in rec:
@@ -90,6 +128,7 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--reps", type=int, default=3)
     p.add_argument("--out", default=os.path.join(REPO, "build", "bench_layer"))
+    p.add_argument("--only", default="", help="comma-separated command names to run")
     args = p.parse_args(argv)
     os.makedirs(args.out, exist_ok=True)
     logf = open(os.path.join(args.out, "bench_layer.log"), "w")
@@ -105,6 +144,12 @@ def main(argv=None) -> int:
                          check=True, timeout=60).stdout.strip()
     say(f"card: {smi}")
     cmds = commands()
+    if args.only:
+        keep = args.only.split(",")
+        unknown = set(keep) - {name for name, _ in cmds}
+        if unknown:
+            p.error(f"unknown commands {sorted(unknown)}")
+        cmds = [(name, cmd) for name, cmd in cmds if name in keep]
     values: dict[str, list] = {}
     failed = 0
     t_all = time.perf_counter()
@@ -120,12 +165,12 @@ def main(argv=None) -> int:
                 say(f"FAILED rep {rep} {name} rc {proc.returncode} ({wall:.1f} s):\n"
                     f"{proc.stderr[-3000:]}")
                 continue
-            rec = json.loads(lines[-1])
+            recs = [json.loads(ln) for ln in lines]
             runs.write(json.dumps({"rep": rep, "name": name, "wall_s": wall, "card": smi,
-                                   "line": rec}) + "\n")
+                                   "lines": recs}) + "\n")
             runs.flush()
-            say(f"rep {rep} {name} ({wall:.1f} s): {lines[-1]}")
-            for key, v in numbers(name, rec).items():
+            say(f"rep {rep} {name} ({wall:.1f} s): " + "\n  ".join(lines))
+            for key, v in numbers(name, recs).items():
                 values.setdefault(key, []).append(v)
     say(f"medians over {args.reps} standalone runs on {smi} "
         f"({time.perf_counter() - t_all:.1f} s in all):")

@@ -83,12 +83,14 @@ def memory_at_peak(snapshot: dict, top: int = 12):
     return peak, peak_frame, rows[:top]
 
 
-def device_rows(prof, wall_s: float) -> dict:
+def device_rows(prof, wall_s: float, spans: str | None = None) -> dict:
     """Device-side rows of a profile: summed times by kind and the union of
-    their intervals as a share of ``wall_s``."""
+    their intervals as a share of ``wall_s``.  Rows named with the prefix
+    ``spans`` (the device ranges of ``record_function`` spans) are left out."""
     from torch.autograd import DeviceType
 
-    evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+           and not (spans and e.name.startswith(spans))]
     by_kind = collections.Counter()
     spans = []
     for e in evs:
