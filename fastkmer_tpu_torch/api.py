@@ -167,5 +167,5 @@ def load_binary(path: str) -> CountResult:
         words, counts, bins = z["words"], z["counts"], z["bins"]
     return CountResult(
         words=words, counts=counts, bins=bins, n_instances=int(counts.sum()),
-        n_bases=0, n_reads=0, n_batches=0, timings={},
+        n_bases=0, n_reads=0, n_batches=0, timings={}, spans=[], counters={},
     )

@@ -26,10 +26,8 @@ Modes (argv[1], each with bench.py's metric name):
 * argv[2] ``dup``: any mode on a 2^21-base genome (about 8x in-batch
   coverage), with ``_dup`` in the metric name.
 
-Prints one JSON line: ``metric``, ``value`` (Gbp/s), ``unit``,
-``vs_baseline`` (against this port's own first H100 measurement of the
-mode, named in ``baseline_device``; null for a mode without one, and for
-a run on the CPU or at other sizes) and the device it ran on.  Diagnostics go to stderr.
+Prints one JSON line: ``metric``, ``value`` (Gbp/s), ``unit`` and the
+device it ran on.  Diagnostics go to stderr.
 
     python -m fastkmer_tpu_torch.bench [mode] [dup] [--device cuda|cpu]
 """
@@ -48,32 +46,12 @@ import torch
 from . import pipeline
 from .ops import count_sort
 
-# The port's medians of three standalone runs of each mode
-# (tools/measure_bench_layer.py --reps 3) on NVIDIA H100 80GB HBM3,
-# 700.00 W (nvidia-smi name, power limit); none of the repository's TPU
-# numbers applies to the port.  A metric without an entry prints
-# vs_baseline null.
-BASELINE_DEVICE = "NVIDIA H100 80GB HBM3, 700.00 W"
-BASELINE_GBPS: dict[str, float] = {
-    "stream_count_throughput_k28_m10": 2.1150836127727892,
-    "count_step_throughput_k28_m10": 3.841258361446677,
-    "stream_percount_throughput_k28_m10": 1.4437386178747171,
-    "stream_adaptive_throughput_k28_m10": 0.6358105019657581,
-    "stream_forced_throughput_k28_m10": 0.4876871746955463,
-    "stream_raw_throughput_k28_m10": 0.6066912419049895,
-    "stream_count_throughput_k28_m10_dup": 2.3841127935006545,
-    "stream_dedup_throughput_k28_m10_dup": 2.13584382882218,
-    "stream_adaptive_throughput_k28_m10_dup": 1.6955464238760891,
-    "stream_forced_throughput_k28_m10_dup": 1.638861870165804,
-}
-
 K, M, B = 28, 10, 512
 R, L = 4096, 4096  # 16.8 Mbp a batch
 GENOME = 1 << 24  # distinct k-mers bounded by the genome
 DUP_GENOME = 1 << 21  # the dup workload: about 8x in-batch coverage
 NBATCH = 16  # 268 Mbp, about 16x coverage
 FANIN = 16
-FULL_SHAPE = (R, L, NBATCH, FANIN)  # the baselines' workload
 PROBE_EVERY = 16  # the adaptive controller's probe cadence (count_batches)
 STEP_WARMUPS, STEP_ITERS = 2, 5  # the step line's untimed and timed counts
 MODES = ("stream", "step", "percount", "dedup", "adaptive", "forced", "raw")
@@ -245,14 +223,7 @@ def run(mode: str = "stream", dup: bool = False, R: int = R, L: int = L,
             extra = {"step_gbps": run_step(staged),
                      "note": "value = streaming count incl. every cross-batch merge; "
                              "step_gbps = the per-batch count step alone"}
-    metric = metric_name(mode, dup)
-    # a ratio only for the workload the baseline was measured on, on a card
-    full = (dev.type == "cuda" and (R, L, n_batch, fanin) == FULL_SHAPE
-            and genome == (DUP_GENOME if dup else GENOME))
-    base = BASELINE_GBPS.get(metric) if full else None
-    rec = {"metric": metric, "value": gbps, "unit": "Gbp/s",
-           "vs_baseline": gbps / base if base else None,
-           "baseline_device": BASELINE_DEVICE if base else None,
+    rec = {"metric": metric_name(mode, dup), "value": gbps, "unit": "Gbp/s",
            "device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"}
     if extra:
         rec["extra"] = extra

@@ -279,7 +279,7 @@ def _run(args) -> dict:
                           device=args.device, checkpoint_dir=args.checkpoint_dir,
                           checkpoint_interval=args.checkpoint_interval,
                           keep_table=args.keep_table)
-        extra = {}
+        extra = {"spans": res.spans, "counters": res.counters}
     return {
         "mode": "count",
         "mesh": args.mesh,

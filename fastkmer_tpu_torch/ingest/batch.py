@@ -12,6 +12,7 @@ SparkBinKmerCounter.scala:78-97), so padding needs no length mask.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Iterable, Iterator, Tuple
 
 import numpy as np
@@ -150,6 +151,7 @@ def batch_file(
     read_len: int,
     use_native: bool | None = None,
     dense: bool = True,
+    timer=None,
 ) -> Iterator[Tuple[np.ndarray, int, int]]:
     """File -> [R, L] code batches, as (codes, n_reads, n_bases); a fresh
     buffer per batch.  ``dense`` (default) packs several reads a row;
@@ -158,23 +160,29 @@ def batch_file(
     Prefers the native C++ parse+encode path (ingest.native) when built;
     falls back to the python parser.  Both give identical batches.
     ``use_native`` True raises instead of falling back, False skips it.
+    The native path reads and encodes the whole file here, in the calling
+    thread; the python parser reads as the batches are taken.  A
+    ``timer`` (utils.timing.StageTimer) holds this call in its span
+    ``ingest_parse``.
     """
     from . import fasta
 
-    if use_native is not False:
-        try:
-            from . import native
+    with timer.span("ingest_parse") if timer else contextlib.nullcontext():
+        if use_native is not False:
+            try:
+                from . import native
 
-            if native.available():
-                fmt = fasta.sniff_format(path)
-                codes, starts = native.parse_file(path, fmt)
-                return _batches_from_parsed(codes, starts, k, reads_per_batch, read_len,
-                                            dense)
-        except Exception:
-            if use_native:
-                raise
-    reads = (seq for _, seq in fasta.iter_reads(path, sequence_type, k, chunk_len=read_len))
-    return (batch_codes_dense if dense else batch_codes)(reads, reads_per_batch, read_len)
+                if native.available():
+                    fmt = fasta.sniff_format(path)
+                    codes, starts = native.parse_file(path, fmt)
+                    return _batches_from_parsed(codes, starts, k, reads_per_batch, read_len,
+                                                dense)
+            except Exception:
+                if use_native:
+                    raise
+        reads = (seq for _, seq in fasta.iter_reads(path, sequence_type, k,
+                                                    chunk_len=read_len))
+        return (batch_codes_dense if dense else batch_codes)(reads, reads_per_batch, read_len)
 
 
 def _packed(packer: _DensePacker, reads) -> Iterator[Tuple[np.ndarray, int, int]]:

@@ -13,8 +13,10 @@ variant (:557-558, :580, :599-602).
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import os
+import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -31,6 +33,7 @@ def write_bin_files(
     k: int,
     eof_sentinel: bool = True,
     clean: bool = True,
+    timer=None,
 ) -> dict[int, str]:
     """Write unique k-mers grouped per bin, each file ending in ``EOF``
     when ``eof_sentinel``.  ``words`` rows must be in ascending k-mer order;
@@ -40,7 +43,12 @@ def write_bin_files(
     With ``clean`` (the default), stale ``bin*`` files and binary
     ``counts*.npz`` artifacts of an earlier run into the same directory are
     removed first: the manifest only checks the artifacts of the new run.
-    Partial rewrites (pipeline.repair_output) pass clean=False."""
+    Partial rewrites (pipeline.repair_output) pass clean=False.
+
+    A ``timer`` (utils.timing.StageTimer) gets the seconds the writer
+    threads spent formatting, hashing and writing the files, summed over
+    the bins, in its counters ``write_format_s``, ``write_hash_s`` and
+    ``write_file_s``."""
     os.makedirs(out_dir, exist_ok=True)
     if clean:
         _clean_stale_outputs(out_dir)
@@ -54,19 +62,25 @@ def write_bin_files(
     bounds = np.append(starts, bins_s.shape[0])
     blist = uniq_bins.tolist()
     hashes: list[str | None] = [None] * len(blist)
+    seconds = np.zeros((len(blist), 3))  # a bin's format, hash and file seconds
 
     def _write_one(bi: int) -> None:
         # the native formatter (ctypes) and the file writes release the GIL,
         # and bins are disjoint slices of read-only arrays
+        t0 = time.perf_counter()
         lo, hi = bounds[bi], bounds[bi + 1]
         lines = _format_lines(words_s[lo:hi], counts_s[lo:hi], k)
+        t1 = time.perf_counter()
         h = hashlib.sha256(lines)
+        if eof_sentinel:
+            h.update(b"EOF")
+        hashes[bi] = h.hexdigest()
+        t2 = time.perf_counter()
         with open(os.path.join(out_dir, f"bin{blist[bi]}"), "wb") as f:
             f.write(lines)
             if eof_sentinel:
                 f.write(b"EOF")
-                h.update(b"EOF")
-        hashes[bi] = h.hexdigest()
+        seconds[bi] = (t1 - t0, t2 - t1, time.perf_counter() - t2)
 
     workers = min(8, os.cpu_count() or 1, len(blist))
     if workers > 1:
@@ -75,6 +89,10 @@ def write_bin_files(
     else:
         for bi in range(len(blist)):
             _write_one(bi)
+    if timer is not None:
+        for name, s in zip(("write_format_s", "write_hash_s", "write_file_s"),
+                           seconds.sum(0).tolist()):
+            timer.count(name, s)
     return {int(b): h for b, h in zip(blist, hashes)}
 
 
@@ -135,16 +153,26 @@ def write_binary(out_dir: str, words: np.ndarray, counts: np.ndarray, bins: np.n
 
 
 def write_binary_with_manifest(out_dir: str, cfg_dict: dict, words, counts,
-                               bins, k: int, extra_files: dict | None = None) -> str:
+                               bins, k: int, extra_files: dict | None = None,
+                               timer=None) -> str:
     """Binary output (enableKryo=1): counts.npz plus a binary-flagged
     manifest whose extra_files carry the npz hash and any caller extras
-    ({name: sha256} of sibling artifacts, e.g. those a repair keeps)."""
-    path = write_binary(out_dir, words, counts, bins, k)
+    ({name: sha256} of sibling artifacts, e.g. those a repair keeps).  A
+    ``timer`` (utils.timing.StageTimer) gets the spans ``write_data`` (the
+    npz), ``write_sha256`` (its hash) and ``write_manifest``."""
+
+    def span(name: str):
+        return timer.span(name) if timer else contextlib.nullcontext()
+
+    with span("write_data"):
+        path = write_binary(out_dir, words, counts, bins, k)
     files = dict(extra_files or {})
-    files["counts.npz"] = manifest_mod.file_sha256(path)
-    manifest_mod.write_manifest(
-        out_dir, cfg_dict, words, counts, bins, extra_files=files, binary=True,
-    )
+    with span("write_sha256"):
+        files["counts.npz"] = manifest_mod.file_sha256(path)
+    with span("write_manifest"):
+        manifest_mod.write_manifest(
+            out_dir, cfg_dict, words, counts, bins, extra_files=files, binary=True,
+        )
     return path
 
 

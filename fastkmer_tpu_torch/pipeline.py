@@ -45,7 +45,9 @@ class CountResult(NamedTuple):
     n_bases: int
     n_reads: int
     n_batches: int  # code batches streamed through the device
-    timings: dict
+    timings: dict  # seconds a span name (StageTimer.as_dict)
+    spans: list  # StageTimer.records
+    counters: dict  # StageTimer.counters
 
 
 def resolve_device(device) -> torch.device:
@@ -64,12 +66,17 @@ def resolve_device(device) -> torch.device:
 @contextlib.contextmanager
 def _span(timer: StageTimer, name: str, *devs: torch.device):
     """Timer span that waits for its CUDA devices at its end, so each span
-    holds its own device work rather than the work queued before it."""
+    holds its own device work rather than the work queued before it; the
+    wait is its child span ``sync_wait``, and each synchronize counts in
+    ``syncs``."""
     with timer.span(name):
         yield
-        for dev in dict.fromkeys(devs):
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
+        cuda = [dev for dev in dict.fromkeys(devs) if dev.type == "cuda"]
+        if cuda:
+            with timer.span("sync_wait"):
+                for dev in cuda:
+                    torch.cuda.synchronize(dev)
+            timer.count("syncs", len(cuda))
 
 
 def table_to_device(words: np.ndarray, counts: np.ndarray, bins: np.ndarray, device):
@@ -84,10 +91,14 @@ def table_to_device(words: np.ndarray, counts: np.ndarray, bins: np.ndarray, dev
     )
 
 
-def table_to_host(cols, counts: torch.Tensor, bins: torch.Tensor):
+def table_to_host(cols, counts: torch.Tensor, bins: torch.Tensor,
+                  timer: StageTimer | None = None):
     """Inverse of table_to_device: ``cols`` is a tuple of int32 [U] columns
-    or one [U, W] int32 tensor."""
+    or one [U, W] int32 tensor.  ``timer`` counts the bytes brought to the
+    host in ``d2h_bytes``."""
     words = cols if isinstance(cols, torch.Tensor) else torch.stack(tuple(cols), 1)
+    if timer is not None:
+        timer.count("d2h_bytes", sum(t.nbytes for t in (words, counts, bins)))
     return (
         words.cpu().numpy().view(np.uint32),
         counts.cpu().numpy().astype(np.int64),
@@ -112,14 +123,15 @@ def _batch_count_sorted(codes: torch.Tensor, k: int, m: int, B: int) -> count_so
     return count_sort.count_presentineled(list(cols))
 
 
-def _batch_count(codes: torch.Tensor, k: int, m: int, B: int):
+def _batch_count(codes: torch.Tensor, k: int, m: int, B: int, timer: StageTimer):
     """Per-batch count straight to a host unique table (the path without
     the accumulator)."""
     W = num_words(k)
     sc = _batch_count_sorted(codes, k, m, B)
     idx = torch.nonzero(sc.is_uniq).squeeze(1)
     words = sc.words[idx, :W]
-    return table_to_host(words, sc.counts[idx], binhash.bins_from_words(words, k, m, B))
+    return table_to_host(words, sc.counts[idx], binhash.bins_from_words(words, k, m, B),
+                         timer)
 
 
 def _batch_count_ht(codes: torch.Tensor, coll: torch.Tensor, k: int, m: int, B: int):
@@ -209,7 +221,9 @@ class DeviceAccumulator:
     per-batch sort), merges every ``fanin`` parts with ONE weighted count
     sort + compaction into a fixed-capacity unique table, and spills the
     table to the host (``host_spills``: numpy (words, counts, bins)
-    triples) when the distinct count outgrows ``acc_cap``.
+    triples) when the distinct count outgrows ``acc_cap``.  ``timer``
+    counts each move of the table to the host, the last one at finalize
+    included, in ``spills``, and its bytes in ``d2h_bytes``.
 
     Capacity pressure is tracked with conservative host-side upper bounds;
     an exact (blocking) scalar read happens only when a spill decision
@@ -233,6 +247,7 @@ class DeviceAccumulator:
         unique_ub: int | None = None,
         extra_lanes: int = 0,
         device="cuda",
+        timer: StageTimer | None = None,
     ):
         self.k = k
         self.W = num_words(k)  # k-mer key words (the binhash input)
@@ -259,6 +274,7 @@ class DeviceAccumulator:
         self._pend_ub = 0  # conservative bound on pending new uniques
         self._wt_dev = 0  # bound on total instance weight on device
         self.host_spills: list = []  # (words, counts, bins) numpy triples
+        self.timer = timer or StageTimer()
 
     def _init_state(self):
         return _init_acc_state(self.acc_cap, self.lanes, self.device)
@@ -356,7 +372,8 @@ class DeviceAccumulator:
             cols, wts, _, _ = self.state
             words = torch.stack([c[:n_u] for c in cols], 1)
             bins = binhash.bins_from_words(words[:, : self.W], self.k, self.m, self.B)
-            self.host_spills.append(table_to_host(words, wts[:n_u], bins))
+            self.host_spills.append(table_to_host(words, wts[:n_u], bins, self.timer))
+            self.timer.count("spills")
         self.state = self._init_state()
         self._acc_ub = 0
         self._wt_dev = 0  # spilled weights left the device (pending is empty)
@@ -468,7 +485,7 @@ def count_batches(
     flagged = device_accumulate and not count_sort.sentinel_safe_for(k)
     acc = (
         DeviceAccumulator(k, m=m, B=B, unique_ub=unique_ub,
-                          extra_lanes=1 if flagged else 0, device=dev)
+                          extra_lanes=1 if flagged else 0, device=dev, timer=timer)
         if device_accumulate
         else None
     )
@@ -497,6 +514,7 @@ def count_batches(
             acc._merge_pending()
         window_kind[0] = kind
         add()
+        timer.count(f"{kind}_parts")
 
     def _admit_dedup(entry) -> None:
         nonlocal dedup_mode
@@ -504,6 +522,7 @@ def count_batches(
         if int(q_over):
             # the batch's compaction dropped uniques: admit its raw
             # columns instead (lossless); adaptive mode disengages
+            timer.count("dedup_overflows")
             _feed_window("raw", lambda: acc.add_raw(raw_q))
             if prededup is None:
                 dedup_mode = False
@@ -550,8 +569,10 @@ def count_batches(
             and batch_idx % PROBE_EVERY == 0
         )
         with _span(timer, "device_count", dev):
-            codes_t = (codes.to(dev) if isinstance(codes, torch.Tensor)
-                       else torch.from_numpy(codes).to(dev))
+            codes_t = codes if isinstance(codes, torch.Tensor) else torch.from_numpy(codes)
+            if codes_t.device.type == "cpu":
+                timer.count("h2d_bytes", codes_t.nbytes)
+            codes_t = codes_t.to(dev)
             if engine == "hash":
                 dpart, coll = _batch_count_ht(codes_t, coll, k, m, B)
             elif acc is not None and (dedup_mode or probe):
@@ -562,7 +583,7 @@ def count_batches(
             elif acc is not None:
                 cols = _batch_extract_keys(codes_t, k, m, B, flagged)
             else:
-                part = _batch_count(codes_t, k, m, B)
+                part = _batch_count(codes_t, k, m, B, timer)
         if acc is not None:
             with _span(timer, "device_merge", dev):
                 if dedup_mode or probe:
@@ -585,7 +606,7 @@ def count_batches(
         else:
             with timer.span("host_compact"):
                 if engine == "hash":
-                    part = table_to_host(*dpart)
+                    part = table_to_host(*dpart, timer)
                     del dpart
                 parts.append(part)
                 if checkpointer is not None:
@@ -612,7 +633,7 @@ def count_batches(
             bins = np.zeros(0, np.int32)
     return CountResult(
         words, counts, bins, int(counts.sum()), n_bases, n_reads, batch_idx + 1,
-        timer.as_dict(),
+        timer.as_dict(), timer.records(), timer.counters(),
     )
 
 
@@ -639,52 +660,65 @@ def execute_job(
     ``keep_table`` also writes table.npz beside the output, so that
     ``repair_output`` rewrites damaged files without recounting.
     ``unique_ub``: caller-asserted bound on distinct k-mers (e.g. genome
-    length) for the sync-free accumulator feed; verified at finalize."""
+    length) for the sync-free accumulator feed; verified at finalize.
+    The result's ``spans`` and ``counters`` are the job's StageTimer
+    records and counters; the root span ``job`` holds the whole call."""
     dev = resolve_device(device)
     timer = StageTimer()
-    if verbose:
-        print(cfg.describe())
-    ckpt = (
-        manifest_mod.BatchCheckpointer(checkpoint_dir, checkpoint_interval)
-        if checkpoint_dir
-        else None
-    )
-    batches = prefetched(
-        batching.batch_file(
-            cfg.dataset, cfg.sequence_type, cfg.k, cfg.reads_per_batch, cfg.read_len
+    with timer.span("job"):
+        if verbose:
+            print(cfg.describe())
+        ckpt = (
+            manifest_mod.BatchCheckpointer(checkpoint_dir, checkpoint_interval)
+            if checkpoint_dir
+            else None
         )
-    )
-    with maybe_profile(trace_dir):
-        res = count_batches(
-            batches, cfg.k, cfg.m, cfg.b, timer, device=dev,
-            unique_ub=unique_ub, prededup=prededup,
-            engine="hash" if cfg.use_ht else "sort", checkpointer=ckpt,
+        batches = prefetched(
+            batching.batch_file(
+                cfg.dataset, cfg.sequence_type, cfg.k, cfg.reads_per_batch, cfg.read_len,
+                timer=timer,
+            ),
+            timer=timer,
         )
-    if cfg.write:
-        with timer.span("write_output"):
-            write_output(cfg, res.words, res.counts, res.bins, keep_table=keep_table)
-    if ckpt is not None:
-        ckpt.clear()  # the run completed; its checkpoints are spent
-    return res._replace(timings=timer.as_dict())
+        with maybe_profile(trace_dir):
+            res = count_batches(
+                batches, cfg.k, cfg.m, cfg.b, timer, device=dev,
+                unique_ub=unique_ub, prededup=prededup,
+                engine="hash" if cfg.use_ht else "sort", checkpointer=ckpt,
+            )
+        if cfg.write:
+            with timer.span("write_output"):
+                write_output(cfg, res.words, res.counts, res.bins, keep_table=keep_table,
+                             timer=timer)
+        if ckpt is not None:
+            ckpt.clear()  # the run completed; its checkpoints are spent
+    return res._replace(timings=timer.as_dict(), spans=timer.records(),
+                        counters=timer.counters())
 
 
 def write_output(cfg: JobConfig, words: np.ndarray, counts: np.ndarray, bins: np.ndarray,
-                 keep_table: bool = False) -> None:
+                 keep_table: bool = False, timer: StageTimer | None = None) -> None:
     """Per-bin text files (with the EOF sentinel for the sort engine), or
     counts.npz for ``use_kryo_serializer``, plus the manifest, into
-    cfg.output_dir; ``keep_table`` adds the table.npz sidecar."""
+    cfg.output_dir; ``keep_table`` adds the table.npz sidecar.  ``timer``
+    gets the spans ``write_data`` (the files), ``write_sha256`` (the npz's
+    hash) and ``write_manifest``."""
+    timer = timer or StageTimer()
     if cfg.use_kryo_serializer:
         writer.write_binary_with_manifest(
-            cfg.output_dir, dataclasses_dict(cfg), words, counts, bins, cfg.k,
+            cfg.output_dir, dataclasses_dict(cfg), words, counts, bins, cfg.k, timer=timer,
         )
     else:
-        bin_hashes = writer.write_bin_files(
-            cfg.output_dir, words, counts, bins, cfg.k, eof_sentinel=not cfg.use_ht,
-        )
-        manifest_mod.write_manifest(
-            cfg.output_dir, dataclasses_dict(cfg), words, counts, bins,
-            bin_hashes=bin_hashes,
-        )
+        with timer.span("write_data"):
+            bin_hashes = writer.write_bin_files(
+                cfg.output_dir, words, counts, bins, cfg.k, eof_sentinel=not cfg.use_ht,
+                timer=timer,
+            )
+        with timer.span("write_manifest"):
+            manifest_mod.write_manifest(
+                cfg.output_dir, dataclasses_dict(cfg), words, counts, bins,
+                bin_hashes=bin_hashes,
+            )
     if keep_table:
         manifest_mod.write_table_sidecar(cfg.output_dir, words, counts, bins)
 

@@ -93,7 +93,7 @@ def test_mode_table_is_the_jax_one(jax_tables, mode):
         f"stream_{mode}_throughput_k28_m10" if mode != "stream"
         else "stream_count_throughput_k28_m10")
     assert rec["unit"] == "Gbp/s" and rec["value"] > 0 and rec["device"] == "cpu"
-    assert rec["vs_baseline"] is None  # the baselines are H100 numbers at the full shapes
+    assert "vs_baseline" not in rec and "baseline_device" not in rec
     if mode == "stream":
         assert rec["extra"]["step_gbps"] > 0
 
@@ -114,7 +114,7 @@ def test_dup_metric_and_sanity_checks():
     assert tbench.metric_name("raw", True) == "stream_raw_throughput_k28_m10_dup"
     assert tbench.metric_name("step", True) == "count_step_throughput_k28_m10"
     names = {tbench.metric_name(m, d) for m in tbench.MODES for d in (False, True)}
-    assert set(tbench.BASELINE_GBPS) <= names and "H100" in tbench.BASELINE_DEVICE
+    assert len(names) == 2 * len(tbench.MODES) - 1  # the step line has no dup name
     # one batch of a 2^20-base genome covers far less than half of it
     with pytest.raises(RuntimeError, match="distinct count"):
         tbench.run("stream", R=R, L=L, n_batch=1, genome=1 << 20, fanin=FANIN, device="cpu")
