@@ -23,6 +23,7 @@ import numpy as np
 
 from ..core import bits
 from . import manifest as manifest_mod
+from . import npz
 
 
 def write_bin_files(
@@ -137,18 +138,22 @@ def _format_lines(words: np.ndarray, counts: np.ndarray, k: int) -> bytes:
 
 
 def write_binary(out_dir: str, words: np.ndarray, counts: np.ndarray, bins: np.ndarray,
-                 k: int, name: str = "counts.npz", clean: bool = True) -> str:
+                 k: int, name: str = "counts.npz", clean: bool = True, timer=None) -> str:
     """Binary output (enableKryo=1): the npz in place of the reference's
-    Kryo variant.  A multi-rank writer passes its own ``name`` shard
-    (``counts.part<r>.npz``; the shards' bins are disjoint and their union
-    is the table) with ``clean=False``, rank 0 having cleaned the shared
-    directory once (clean_output_dir).  ``clean`` removes stale bin files
-    and npz artifacts of an earlier run, as in write_bin_files."""
+    Kryo variant, ``np.savez_compressed``'s container deflated in blocks
+    over the host's cores (npz.write_npz, which counts ``write_blocks``
+    and ``write_threads`` on a ``timer``).  A multi-rank writer passes its
+    own ``name`` shard (``counts.part<r>.npz``; the shards' bins are
+    disjoint and their union is the table) with ``clean=False``, rank 0
+    having cleaned the shared directory once (clean_output_dir).  ``clean``
+    removes stale bin files and npz artifacts of an earlier run, as in
+    write_bin_files."""
     os.makedirs(out_dir, exist_ok=True)
     if clean:
         _clean_stale_outputs(out_dir)
     path = os.path.join(out_dir, name)
-    np.savez_compressed(path, words=words, counts=counts, bins=bins, k=np.int32(k))
+    npz.write_npz(path, {"words": words, "counts": counts, "bins": bins, "k": np.int32(k)},
+                  timer=timer)
     return path
 
 
@@ -165,7 +170,7 @@ def write_binary_with_manifest(out_dir: str, cfg_dict: dict, words, counts,
         return timer.span(name) if timer else contextlib.nullcontext()
 
     with span("write_data"):
-        path = write_binary(out_dir, words, counts, bins, k)
+        path = write_binary(out_dir, words, counts, bins, k, timer=timer)
     files = dict(extra_files or {})
     with span("write_sha256"):
         files["counts.npz"] = manifest_mod.file_sha256(path)
