@@ -157,13 +157,15 @@ def batch_file(
     buffer per batch.  ``dense`` (default) packs several reads a row;
     False packs one read a row (batch_codes).
 
-    Prefers the native C++ parse+encode path (ingest.native) when built;
-    falls back to the python parser.  Both give identical batches.
-    ``use_native`` True raises instead of falling back, False skips it.
-    The native path reads and encodes the whole file here, in the calling
-    thread; the python parser reads as the batches are taken.  A
-    ``timer`` (utils.timing.StageTimer) holds this call in its span
-    ``ingest_parse``.
+    Prefers the native C++ route (ingest.native) when built; falls back to
+    the python parser.  Both give identical batches.  ``use_native`` True
+    raises instead of falling back, False skips it.  The native route reads
+    and encodes the whole file here, in the calling thread, and then fills
+    each dense batch in one native call as the batches are taken (on the
+    prefetch thread, under ``prefetched``); the python parser reads as the
+    batches are taken.  A ``timer`` (utils.timing.StageTimer) holds this
+    call in its span ``ingest_parse`` and counts each natively filled batch
+    in ``native_pack_batches``.
     """
     from . import fasta
 
@@ -175,8 +177,11 @@ def batch_file(
                 if native.available():
                     fmt = fasta.sniff_format(path)
                     codes, starts = native.parse_file(path, fmt)
-                    return _batches_from_parsed(codes, starts, k, reads_per_batch, read_len,
-                                                dense)
+                    if dense:
+                        return _batches_from_parsed(codes, starts, k, reads_per_batch,
+                                                    read_len, timer)
+                    return _rows(_chunks(codes, starts, k, read_len), reads_per_batch,
+                                 read_len)
             except Exception:
                 if use_native:
                     raise
@@ -195,26 +200,35 @@ def _packed(packer: _DensePacker, reads) -> Iterator[Tuple[np.ndarray, int, int]
 
 def _batches_from_parsed(
     codes: np.ndarray, starts: np.ndarray, k: int, reads_per_batch: int, read_len: int,
-    dense: bool = True,
+    timer=None,
 ) -> Iterator[Tuple[np.ndarray, int, int]]:
-    """Assemble batches from natively parsed (codes, record offsets):
-    records longer than read_len are chunked with k-1 overlap (the long-mode
+    """Natively parsed (codes, record offsets) -> densely packed batches,
+    one ``native.pack_dense`` call a batch: _chunks packed by _DensePacker,
+    byte for byte."""
+    from . import native
+
+    cursor = np.zeros(2, dtype=np.int64)
+    while True:
+        buf = np.empty((reads_per_batch, read_len), dtype=np.uint8)
+        n_reads, n_bases = native.pack_dense(codes, starts, k, buf, cursor)
+        if not n_reads:
+            return
+        if timer:
+            timer.count("native_pack_batches")
+        yield buf, n_reads, n_bases
+
+
+def _chunks(codes: np.ndarray, starts: np.ndarray, k: int,
+            read_len: int) -> Iterator[np.ndarray]:
+    """The reads of natively parsed (codes, record offsets): records longer
+    than read_len are chunked with k-1 overlap (the long-mode
     PartialSequence semantics), shorter ones pass through."""
     stride = read_len - (k - 1)
-    rows: list[tuple[int, int]] = []  # (offset, length)
     for i in range(starts.shape[0] - 1):
         off, end = int(starts[i]), int(starts[i + 1])
-        ln = end - off
-        if ln <= read_len:
-            rows.append((off, ln))
-        else:
-            pos = off
-            while pos < end:
-                rows.append((pos, min(read_len, end - pos)))
-                if pos + read_len >= end:
-                    break
-                pos += stride
-    reads = (codes[off : off + ln] for off, ln in rows)
-    if not dense:
-        return _rows(reads, reads_per_batch, read_len)
-    return _packed(_DensePacker(reads_per_batch, read_len), reads)
+        pos = off
+        while True:
+            yield codes[pos : min(pos + read_len, end)]
+            if pos + read_len >= end:
+                break
+            pos += stride

@@ -39,6 +39,11 @@ def _load():
     ]
     lib.fk_gunzip.restype = ctypes.c_int64
     lib.fk_gunzip.argtypes = [u8p, ctypes.c_int64, u8p, ctypes.c_int64]
+    lib.fk_pack_dense.restype = ctypes.c_int64
+    lib.fk_pack_dense.argtypes = [
+        u8p, i64p, ctypes.c_int64, ctypes.c_int32, ctypes.c_int64, ctypes.c_int64,
+        u8p, i64p, i64p,
+    ]
     return lib
 
 
@@ -85,6 +90,35 @@ def parse_file(path: str, fmt: str = "fasta"):
         raise RuntimeError(f"native parse failed with code {nrec}")
     total = starts[nrec]
     return codes[:total], starts[: nrec + 1].copy()
+
+
+def pack_dense(codes: np.ndarray, starts: np.ndarray, k: int, out: np.ndarray,
+               cursor: np.ndarray) -> tuple[int, int]:
+    """Fill ``out`` (uint8 [R, L], C-contiguous) with the next densely packed
+    batch of the parsed records ``(codes, starts)`` (``parse_file``), each
+    record longer than L cut into chunks overlapping by k-1, in one native
+    call that releases the interpreter lock.  ``cursor`` (int64[2], zeros at
+    the start) is where the batch starts and is advanced past it.  Returns
+    (n_reads, n_bases), n_reads 0 once the records are exhausted."""
+    lib = _lib()
+    if out.dtype != np.uint8 or out.ndim != 2 or not out.flags.c_contiguous or 0 in out.shape:
+        raise ValueError("out must be a non-empty C-contiguous uint8 [R, L] array")
+    if cursor.dtype != np.int64 or cursor.shape != (2,) or not cursor.flags.c_contiguous:
+        raise ValueError("cursor must be a contiguous int64[2] array")
+    codes = np.ascontiguousarray(codes, dtype=np.uint8)
+    starts = np.ascontiguousarray(starts, dtype=np.int64)
+    R, L = out.shape
+    totals = np.zeros(2, dtype=np.int64)
+    i64p = ctypes.POINTER(ctypes.c_int64)
+    n = lib.fk_pack_dense(
+        _as_u8p(codes), starts.ctypes.data_as(i64p), ctypes.c_int64(starts.shape[0] - 1),
+        ctypes.c_int32(k), ctypes.c_int64(R), ctypes.c_int64(L),
+        _as_u8p(out), cursor.ctypes.data_as(i64p), totals.ctypes.data_as(i64p),
+    )
+    if n < 0:
+        raise ValueError(f"read_len {L} leaves no stride at k={k}: a record longer "
+                         "than read_len cannot be chunked")
+    return int(totals[0]), int(totals[1])
 
 
 def dump_lines(words: np.ndarray, counts: np.ndarray, k: int) -> bytes:

@@ -1,12 +1,14 @@
-// Native FASTA parse + 2-bit encode — the ingest hot path.
+// Native FASTA parse + 2-bit encode, and dense batch assembly — the
+// ingest hot path.
 //
 // Plays the role FASTdoop's record readers play for the reference
 // (SURVEY.md §2.6: "record ingest" is one of the JVM-library roles that
 // must become first-class native components): one pass over the raw file
 // bytes produces invalid-code-4 encoded sequence codes with headers and
-// line breaks removed, plus per-record offsets.  Batch assembly (k-1
-// overlap chunking, fixed-shape padding) stays in numpy — slicing an
-// already-encoded uint8 array is memcpy-bound.
+// line breaks removed, plus per-record offsets.  fk_pack_dense then cuts
+// those records into chunks with a k-1 overlap and packs them into the
+// fixed-shape [R, L] batches, one call a batch (ingest/batch.py's dense
+// route; its python packer is the fallback and the reference).
 //
 // Exposed via ctypes (no pybind11 in this image); see __init__.py.
 
@@ -174,6 +176,63 @@ int64_t fk_parse_fastq(const uint8_t* in, int64_t n, uint8_t* codes_out,
     }
     rec_starts[nrec] = w;
     return nrec;
+}
+
+// Fill one [R, L] batch from parsed records, densely: several chunks a
+// row, one invalid cell between two chunks in a row, a chunk that does not
+// fit starting the next row (ingest/batch.py's _DensePacker).  A record of
+// length <= L is one chunk; a longer one is cut at stride L-(k-1) into
+// chunks of min(L, rest), ending with the chunk that reaches its end.
+//   codes, rec_starts: fk_parse_* output; record i is
+//                codes[rec_starts[i] .. rec_starts[i+1]), i < nrec
+//   out:         R*L bytes, every one written (code 4 where no chunk is)
+//   cursor:      in/out {record, offset of the next chunk in it}; starts
+//                at {0, 0} and is left at the first chunk not placed
+//   totals:      out {chunks placed, their lengths summed}
+// A batch ends when a chunk overflows its last row or the records run
+// out.  Returns the chunks placed, 0 once the records are exhausted (no
+// batch), or -1 if a record needs cutting and L-(k-1) < 1.
+int64_t fk_pack_dense(const uint8_t* codes, const int64_t* rec_starts,
+                      int64_t nrec, int32_t k, int64_t R, int64_t L,
+                      uint8_t* out, int64_t* cursor, int64_t* totals) {
+    const int64_t stride = L - (k - 1);
+    int64_t rec = cursor[0], rel = cursor[1];
+    int64_t row = 0, col = 0, n_reads = 0, n_bases = 0;
+    uint8_t* rowp = out;
+    while (rec < nrec) {
+        const int64_t off = rec_starts[rec];
+        const int64_t ln = rec_starts[rec + 1] - off;
+        const int64_t n = ln - rel < L ? ln - rel : L;
+        int64_t need = col == 0 ? n : n + 1;  // +1 separator cell
+        if (col + need > L) {
+            std::memset(rowp + col, 4, L - col);
+            col = 0;
+            if (++row == R) break;  // full: the chunk opens the next batch
+            rowp += L;
+            need = n;
+        }
+        if (need > n) rowp[col++] = 4;
+        std::memcpy(rowp + col, codes + off + rel, n);
+        col += n;
+        ++n_reads;
+        n_bases += n;
+        if (rel + L >= ln) {
+            ++rec;
+            rel = 0;
+        } else if (stride < 1) {
+            return -1;
+        } else {
+            rel += stride;
+        }
+    }
+    if (row < R) {
+        std::memset(rowp + col, 4, (R - row) * L - col);
+    }
+    cursor[0] = rec;
+    cursor[1] = rel;
+    totals[0] = n_reads;
+    totals[1] = n_bases;
+    return n_reads;
 }
 
 // Decode packed k-mer rows + counts into "<KMER>\t<count>\n" lines — the

@@ -2,7 +2,8 @@
 the spans and counters of a count job: records nest by parent and thread,
 the totals are their spans' seconds, two threads lose no update, the
 ``fk:`` markers appear only under a profiler, one pair a main-thread span
-with nothing inside, and ``--stats-json`` carries spans and counters."""
+with nothing inside, ``native_pack_batches`` counts the natively filled
+batches, and ``--stats-json`` carries spans and counters."""
 
 import json
 import os
@@ -22,6 +23,7 @@ from fastkmer_tpu_torch import cli as tcli  # noqa: E402
 from fastkmer_tpu_torch import pipeline as tpipe  # noqa: E402
 from fastkmer_tpu_torch.config import JobConfig  # noqa: E402
 from fastkmer_tpu_torch.ingest import batch as tbatch  # noqa: E402
+from fastkmer_tpu_torch.ingest import native as tnative  # noqa: E402
 from fastkmer_tpu_torch.ingest.prefetch import prefetched  # noqa: E402
 from fastkmer_tpu_torch.utils import timing  # noqa: E402
 
@@ -171,6 +173,22 @@ def test_job_spans_totals_and_counters(tmp_path, fasta, path, binary, kw):
         assert c["dedup_parts"] == (res.n_batches if path == "dedup" else 1)
     text_counters = {"write_format_s", "write_hash_s", "write_file_s"}
     assert (text_counters <= set(c)) == (not binary)
+
+
+@pytest.mark.parametrize("native", [True, False])
+def test_native_pack_batches_counts_the_native_route(tmp_path, fasta, monkeypatch, native):
+    """``native_pack_batches`` counts the batches the native route fills,
+    one a batch; the python fallback (no native library) leaves it out, so
+    a job that fell back shows it."""
+    if not native:
+        monkeypatch.setattr(tnative, "available", lambda: False)
+    res = tpipe.execute_job(_cfg(fasta, str(tmp_path) + "/"), verbose=False, device="cpu")
+    assert res.n_batches == len(list(tbatch.batch_file(fasta, 0, K, R, L))) > 1
+    assert res.counters.get("native_pack_batches") == (res.n_batches if native else None)
+    t = timing.StageTimer()
+    assert len(list(tbatch.batch_file(fasta, 0, K, R, L, use_native=native, timer=t))) \
+        == res.n_batches
+    assert t.counters().get("native_pack_batches") == (res.n_batches if native else None)
 
 
 def test_markers_only_under_a_profiler(tmp_path, fasta, monkeypatch):
