@@ -14,9 +14,9 @@ as in ``fastkmer_tpu`` so that each has a visible counterpart:
 * ``parallel.partitioner`` (LPT and hash bin placement, exchange cap sizing)
 * ``utils.{timing,nativebuild}`` (``StageTimer``; g++ builds of the native parts)
 
-``bench`` is the headline benchmark (``python -m fastkmer_tpu_torch.bench``)
-and ``entry`` the entry points (``entry()``,
-``dryrun_multichip(n)``).
+``bench`` times a synthetic stream of batches staged on the device, in its
+modes; the benchmark is ``BENCHMARK.json``'s, run by ``kbench/``.  ``entry``
+holds the entry points (``entry()``, ``dryrun_multichip(n)``).
 
 This package imports ``torch`` and neither ``jax`` nor ``fastkmer_tpu``.  Packed k-mer words are
 ``torch.int32`` tensors that hold the uint32 bit pattern (the all-ones

@@ -1,4 +1,4 @@
-"""Headline benchmark of the port: streaming k-mer counting on one card.
+"""Synthetic bench of the port: streaming k-mer counting on one card.
 
 The port of the repository's ``bench.py`` with its workload unchanged:
 k=28 m=10 B=512, 16 batches of [4096, 4096] reads, each read a random
@@ -7,7 +7,7 @@ k-mers are bounded by the genome), the accumulator's fan-in from
 ``FASTKMER_BENCH_FANIN`` (default 16) and ``unique_ub`` = the genome size.
 The batches are staged on the card and landed before the clock starts;
 one warm-up replays the exact timed sequence; the one fence is the
-accumulator's stats read after its last merge, plus a synchronize.
+accumulator's ``check`` after its last part, plus a synchronize.
 
 Modes (argv[1], each with bench.py's metric name):
 
@@ -108,8 +108,7 @@ def feed(acc: pipeline.DeviceAccumulator, staged: list, mode: str) -> dict:
             acc.add_part(dcols, dwts)
         else:
             acc.add_raw(pipeline._batch_extract_keys(codes, k, m, b))
-    acc._merge_pending()
-    stats = acc._stats()  # a scalar read: waits for every dispatch above
+    stats = acc.check()  # a scalar read: waits for every dispatch above
     if acc.device.type == "cuda":
         torch.cuda.synchronize(acc.device)
     stats["pre_over"] = int(pre_over)

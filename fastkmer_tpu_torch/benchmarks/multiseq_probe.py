@@ -62,8 +62,7 @@ def run(S: int = 8, G: int = 1 << 21, NB: int = 8, R: int = 4096, L: int = 4096,
                 acc.add_raw(_batch_extract_keys_seq(codes, sids, K, M, B))
             else:
                 acc.add_raw(pipeline._batch_extract_keys(codes, K, M, B))
-        acc._merge_pending()
-        return acc._stats()
+        return acc.check()
 
     lines, secs = [], {}
     for arm, with_seq in (("plain", False), ("multiseq", True)):

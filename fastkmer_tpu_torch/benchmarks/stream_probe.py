@@ -59,7 +59,7 @@ def run(R: int = bench.R, L: int = bench.L, genome: int = bench.GENOME, n_batch:
             disp.append(time.perf_counter() - t)
         feed_s = time.perf_counter() - t0  # the last add_raw queued the merge
         t = time.perf_counter()
-        stats = acc._stats()
+        stats = acc.check()
         fence_s = time.perf_counter() - t
         reps.append({"feed_s": feed_s, "dispatch_s": disp, "fence_s": fence_s,
                      "total_s": feed_s + fence_s, "n_unique": stats["n_unique"]})

@@ -1,6 +1,6 @@
 """Host-side (numpy) bit-level core — the port's copy of what it uses of
 ``fastkmer_tpu.core.bits``: ASCII <-> 2-bit codes, the word count of a
-k-mer, the decode of packed word rows for output, and the scalar helpers
+k-mer, the empty count table, the decode of packed word rows for output, and the scalar helpers
 (reverse complement of a packed m-mer, pack and unpack of one k-mer).
 
 Bases are 2-bit codes A=0 C=1 G=2 T=3; anything else (N, lowercase, ...)
@@ -53,6 +53,12 @@ def reverse_complement_int(v: int, length: int) -> int:
 
 def num_words(k: int) -> int:
     return -(-k // BASES_PER_WORD)
+
+
+def empty_table(lanes: int) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The count table with no rows: (words [0, lanes] uint32, counts int64,
+    bins int32)."""
+    return np.zeros((0, lanes), np.uint32), np.zeros(0, np.int64), np.zeros(0, np.int32)
 
 
 def pack_kmer_words(codes: np.ndarray, k: int) -> tuple[int, ...]:

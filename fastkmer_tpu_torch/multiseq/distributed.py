@@ -21,8 +21,7 @@ from ..ingest import batch as batching
 from ..ingest.prefetch import prefetched
 from ..output import manifest as manifest_mod
 from ..parallel import exchange, partitioner, stream
-from ..pipeline import _span
-from ..utils.timing import StageTimer
+from ..utils.timing import StageTimer, fenced_span
 from . import distances as dist_mod
 from .pipeline import MultiseqResult, SequenceTags, _write_multiseq_output, pair_distances
 
@@ -76,7 +75,7 @@ def execute_multiseq_job_distributed(cfg, mesh: exchange.Mesh, cap: int | None =
     if cfg.use_custom_partitioner:
         est = exchange.estimate_bin_sizes(mesh, cfg.k, cfg.m, cfg.b)
         take = max(1, int(round(1.0 / max(cfg.sample_fraction, 1e-9))))
-        with _span(timer, "lpt_prepass", *devs):
+        with fenced_span(timer, "lpt_prepass", *devs):
             for i, (codes, _sids, _, _) in enumerate(batches()):
                 if i % take == 0:
                     hist += est(exchange.shard_batch(mesh, codes)).cpu().numpy()
@@ -91,7 +90,7 @@ def execute_multiseq_job_distributed(cfg, mesh: exchange.Mesh, cap: int | None =
     if cap is None:
         if not hist.any():
             est = exchange.estimate_bin_sizes(mesh, cfg.k, cfg.m, cfg.b)
-            with _span(timer, "cap_sizing", *devs):
+            with fenced_span(timer, "cap_sizing", *devs):
                 for codes, _sids, _, _ in batches():
                     hist += est(exchange.shard_batch(mesh, codes)).cpu().numpy()
                     break
@@ -103,15 +102,14 @@ def execute_multiseq_job_distributed(cfg, mesh: exchange.Mesh, cap: int | None =
         unique_ub=unique_ub, prededup=prededup,
     )
     ckpt = None
-    skip = persisted = 0
+    skip = 0
     if checkpoint_dir:
         ckpt = manifest_mod.BatchCheckpointer(checkpoint_dir, checkpoint_interval)
         skip = ckpt.completed_batches()
         ctr.host_spills.extend(ckpt.load_parts())
-        persisted = len(ctr.host_spills)
 
     n_batches = 0
-    with _span(timer, "count", *devs):
+    with fenced_span(timer, "count", *devs):
         for i, (codes, sids, nr, nb) in enumerate(prefetched(batches())):
             n_batches += 1
             if i < skip:
@@ -119,10 +117,9 @@ def execute_multiseq_job_distributed(cfg, mesh: exchange.Mesh, cap: int | None =
             ctr.feed(codes, n_reads=nr, n_bases=nb, seq_ids=sids)
             if ckpt is not None and (i + 1) % ckpt.interval == 0:
                 ctr.spill()
-                ckpt.save_spills(i + 1, ctr.host_spills[persisted:], persisted)
-                persisted = len(ctr.host_spills)
+                ckpt.save_spills(i + 1, ctr.host_spills)
 
-    with _span(timer, "merge", *devs):
+    with fenced_span(timer, "merge", *devs):
         words_ext, counts, bins = ctr.finalize()
     words = words_ext[:, :W]
     seqs = words_ext[:, W].astype(np.int32)

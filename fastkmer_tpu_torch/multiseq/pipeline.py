@@ -46,7 +46,7 @@ from ..ingest.prefetch import prefetched
 from ..ops import binhash, count_sort, cuda_extract
 from ..output import manifest as manifest_mod
 from ..output import writer
-from ..utils.timing import StageTimer
+from ..utils.timing import StageTimer, fenced_span
 from . import distances as dist_mod
 
 
@@ -412,20 +412,14 @@ def execute_multiseq_job(
         else None
     )
     skip = 0
-    persisted = 0
     if ckpt is not None:
         skip = ckpt.completed_batches()
-        loaded = ckpt.load_parts()
-        if acc is not None:
-            acc.host_spills.extend(loaded)
-            persisted = len(acc.host_spills)
-        else:
-            parts.extend(loaded)
+        (acc.host_spills if acc is not None else parts).extend(ckpt.load_parts())
     batches = prefetched(
         batching.batch_codes_dense_tagged(tags.reads(cfg), cfg.reads_per_batch, cfg.read_len)
     )
     n_batches = 0
-    with base._span(timer, "device_count", dev):
+    with fenced_span(timer, "device_count", dev):
         for batch_idx, (codes, sids, _, _) in enumerate(batches):
             n_batches += 1
             if batch_idx < skip:
@@ -436,23 +430,18 @@ def execute_multiseq_job(
                 acc.add_raw(_batch_extract_keys_seq(codes_t, sids_t, cfg.k, cfg.m, cfg.b))
                 if ckpt is not None and (batch_idx + 1) % ckpt.interval == 0:
                     acc.spill()
-                    ckpt.save_spills(batch_idx + 1, acc.host_spills[persisted:], persisted)
-                    persisted = len(acc.host_spills)
+                    ckpt.save_spills(batch_idx + 1, acc.host_spills)
             else:
                 part = _batch_count_seq(codes_t, sids_t, cfg.k, cfg.m, cfg.b)
                 parts.append(part)
                 if ckpt is not None:
                     ckpt.save_batch(batch_idx, *part)
 
-    with base._span(timer, "merge", dev):
+    with fenced_span(timer, "merge", dev):
         if acc is not None:
             words_ext, counts, bins = acc.finalize()
-        elif parts:
-            words_ext, counts, bins = base.merge_partials(parts, W + 1)
         else:
-            words_ext = np.zeros((0, W + 1), np.uint32)
-            counts = np.zeros(0, np.int64)
-            bins = np.zeros(0, np.int32)
+            words_ext, counts, bins = base.merge_partials(parts, W + 1)
     words = words_ext[:, :W]
     seqs = words_ext[:, W].astype(np.int32)
 

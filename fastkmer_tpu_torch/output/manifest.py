@@ -239,7 +239,8 @@ class BatchCheckpointer:
       path, where every batch's table visits the host anyway;
     * spills (``save_spills``): the device-accumulator paths checkpoint at
       merge boundaries by forcing a spill every ``interval`` batches and
-      persisting the new spill parts and the batch cursor.  A resume loads
+      persisting the spill parts past the cursor's count and the batch
+      cursor.  A resume loads
       the spills back and skips the covered batches; spilled parts merge by
       the same weighted group-by as live ones, so the table is exact.
     """
@@ -275,18 +276,22 @@ class BatchCheckpointer:
         )
         self._write_cursor({"completed": index + 1, "spills": 0})
 
-    def save_spills(self, completed: int, parts: list, first_seq: int) -> None:
-        """Persist ``parts`` as spill files ``first_seq..`` and advance the
-        cursor to ``completed`` batches.  The cursor keeps a log of every
-        (completed, spills) pair, so a resume can roll back to an earlier
-        cursor (``rollback_to``)."""
-        for i, (words, counts, bins) in enumerate(parts):
+    def save_spills(self, completed: int, parts: list) -> None:
+        """Persist the tables of ``parts`` past the cursor's spill count as
+        spill files and advance the cursor to ``completed`` batches.
+        ``parts`` is every table the run holds, loaded ones first, so a run
+        resumed from a per-batch directory persists its loaded parts as
+        spills too.  The cursor keeps a log of every (completed, spills)
+        pair, so a resume can roll back to an earlier cursor
+        (``rollback_to``)."""
+        cur = self._cursor()
+        for i in range(cur["spills"], len(parts)):
+            words, counts, bins = parts[i]
             np.savez(
-                os.path.join(self.dir, f"spill{first_seq + i:06d}.npz"),
+                os.path.join(self.dir, f"spill{i:06d}.npz"),
                 words=words, counts=counts, bins=bins,
             )
-        cur = self._cursor()
-        entry = [completed, first_seq + len(parts)]
+        entry = [completed, len(parts)]
         self._write_cursor(
             {"completed": entry[0], "spills": entry[1], "log": cur["log"] + [entry]}
         )

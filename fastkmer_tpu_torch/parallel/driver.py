@@ -38,14 +38,13 @@ import numpy as np
 
 from .. import pipeline
 from ..config import JobConfig
-from ..core.bits import num_words
+from ..core.bits import empty_table, num_words
 from ..ingest import batch as batching
 from ..ingest.prefetch import prefetched
 from ..ops import count_hash, count_sort
 from ..output import manifest as manifest_mod
 from ..output import writer
-from ..utils.timing import StageTimer, maybe_profile
-from ..pipeline import _span
+from ..utils.timing import StageTimer, fenced_span, maybe_profile
 from . import exchange, multihost, partitioner, stream
 
 
@@ -192,7 +191,7 @@ def _execute_job_distributed(cfg: JobConfig, mesh: exchange.Mesh, cap: int | Non
     if cfg.use_custom_partitioner:
         est = exchange.estimate_bin_sizes(mesh, k, m, b)
         take = max(1, int(round(1.0 / max(cfg.sample_fraction, 1e-9))))
-        with _span(timer, "lpt_prepass", *devs):
+        with fenced_span(timer, "lpt_prepass", *devs):
             for i, (codes, _, _) in enumerate(batches()):
                 if i % take == 0:  # deterministic 1-in-take sampling
                     hist += est(exchange.shard_batch(mesh, codes)).cpu().numpy()
@@ -212,7 +211,7 @@ def _execute_job_distributed(cfg: JobConfig, mesh: exchange.Mesh, cap: int | Non
         if not hist.any():
             # hash placement: sample ONE batch for capacity sizing
             est = exchange.estimate_bin_sizes(mesh, k, m, b)
-            with _span(timer, "cap_sizing", *devs):
+            with fenced_span(timer, "cap_sizing", *devs):
                 for codes, _, _ in batches():
                     hist += est(exchange.shard_batch(mesh, codes)).cpu().numpy()
                     break
@@ -248,20 +247,20 @@ def _execute_job_distributed(cfg: JobConfig, mesh: exchange.Mesh, cap: int | Non
     collision_total = None  # HT engine: device scalar, read once at the end
     # every compacted part visits the host anyway, so the parts themselves
     # are the checkpoint unit (the spill flow of BatchCheckpointer)
-    skip = persisted = 0
-    new_parts: list = []  # parts since the last checkpoint, all shards
+    skip = 0
+    held: list = []  # every part of the run, loaded ones first, all shards
     if ckpt is not None:
         skip = _resume_cursor(ckpt, mesh)
-        for part in ckpt.load_parts():
+        held = ckpt.load_parts()
+        for part in held:
             _split_part_by_owner(part, owner_map, per_chip_parts)
-            persisted += 1
     for i, (codes, nr, nb) in enumerate(prefetched(batches())):
         n_batches += 1
         if i < skip:  # counted before the interruption
             n_reads += nr
             n_bases += nb
             continue
-        with _span(timer, "device_step", *devs):
+        with fenced_span(timer, "device_step", *devs):
             shards = exchange.shard_batch(mesh, codes)
             sc = step(shards)
         # batches are independent here, so overflow recovery is a straight
@@ -280,7 +279,7 @@ def _execute_job_distributed(cfg: JobConfig, mesh: exchange.Mesh, cap: int | Non
                 print(f"exchange overflow; retrying batch at cap={cap}")
             step = build_step(cap)
             sc = None  # free the failed step's buffers before the retry
-            with _span(timer, "device_step", *devs):
+            with fenced_span(timer, "device_step", *devs):
                 sc = step(shards)
         if sync_free:
             dropped_total = sc.dropped if dropped_total is None else dropped_total + sc.dropped
@@ -288,11 +287,11 @@ def _execute_job_distributed(cfg: JobConfig, mesh: exchange.Mesh, cap: int | Non
             collision_total = (sc.collision if collision_total is None
                                else collision_total + sc.collision)
         xbytes += step_bytes(cap)
-        with _span(timer, "host_compact", *devs):
+        with fenced_span(timer, "host_compact", *devs):
             for c, part in exchange.compact_shard_counts(sc, with_chips=True):
                 per_chip_parts.setdefault(c, []).append(part)
                 if ckpt is not None:
-                    new_parts.append(part)
+                    held.append(part)
         del sc, shards
         n_reads += nr
         n_bases += nb
@@ -302,9 +301,7 @@ def _execute_job_distributed(cfg: JobConfig, mesh: exchange.Mesh, cap: int | Non
                 # drop counter is verified first
                 _check_dropped(dropped_total, cap)
                 dropped_total = None
-                ckpt.save_spills(i + 1, new_parts, persisted)
-                persisted += len(new_parts)
-                new_parts = []
+                ckpt.save_spills(i + 1, held)
     _check_dropped(dropped_total, cap)
     # lockstep: the collision flags are summed over the ranks, so every rank raises
     if collision_total is not None and int(collision_total):
@@ -327,9 +324,7 @@ def _execute_job_distributed(cfg: JobConfig, mesh: exchange.Mesh, cap: int | Non
             order = np.lexsort(tuple(words[:, w] for w in reversed(range(W))))
             words, counts, bins = words[order], counts[order], bins[order]
         else:
-            words = np.zeros((0, W), np.uint32)
-            counts = np.zeros(0, np.int64)
-            bins = np.zeros(0, np.int32)
+            words, counts, bins = empty_table(W)
 
     if cfg.write:
         with timer.span("write_output"):
@@ -379,11 +374,10 @@ def _count_streaming(cfg: JobConfig, mesh: exchange.Mesh, timer: StageTimer, bat
         with_seq=flagged, unique_ub=unique_ub, prededup=prededup,
     )
     zero_sids = np.zeros(R, np.int32) if flagged else None
-    skip = persisted = 0
+    skip = 0
     if ckpt is not None:
         skip = _resume_cursor(ckpt, mesh)
         ctr.host_spills.extend(ckpt.load_parts())
-        persisted = len(ctr.host_spills)
     n_batches = 0
     for i, (codes, nr, nb) in enumerate(prefetched(batches())):
         n_batches += 1
@@ -391,14 +385,13 @@ def _count_streaming(cfg: JobConfig, mesh: exchange.Mesh, timer: StageTimer, bat
             ctr.n_reads += nr
             ctr.n_bases += nb
             continue
-        with _span(timer, "device_step", *mesh.devices):
+        with fenced_span(timer, "device_step", *mesh.devices):
             ctr.feed(codes, n_reads=nr, n_bases=nb, seq_ids=zero_sids)
         if ckpt is not None and (i + 1) % ckpt.interval == 0:
-            with _span(timer, "checkpoint", *mesh.devices):
+            with fenced_span(timer, "checkpoint", *mesh.devices):
                 ctr.spill()
-                ckpt.save_spills(i + 1, ctr.host_spills[persisted:], persisted)
-                persisted = len(ctr.host_spills)
-    with _span(timer, "merge", *mesh.devices):
+                ckpt.save_spills(i + 1, ctr.host_spills)
+    with fenced_span(timer, "merge", *mesh.devices):
         words, counts, bins = ctr.finalize()
         if flagged:
             words = words[:, : num_words(cfg.k)]  # drop the zero lane

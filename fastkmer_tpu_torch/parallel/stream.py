@@ -547,11 +547,4 @@ class DistributedCounter:
         is a weighted group-by (pipeline.merge_partials)."""
         stats = self.check()
         self._raise_if_lost(stats)
-        parts = self.host_spills + self._pull_tables(stats)
-        if not parts:
-            return (
-                np.zeros((0, self.W), np.uint32),
-                np.zeros(0, np.int64),
-                np.zeros(0, np.int32),
-            )
-        return pipeline.merge_partials(parts, self.W)
+        return pipeline.merge_partials(self.host_spills + self._pull_tables(stats), self.W)

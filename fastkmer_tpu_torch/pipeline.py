@@ -4,6 +4,7 @@ single-chip count job (``execute_job``) and its repair:
     host ingest -> fixed-shape [R, L] code batches           (shared, host)
       -> stage-1 extract, the CUDA kernel (ops.cuda_extract) (device)
       -> sort engine: DeviceAccumulator fan-in weighted merge (device)
+         of raw or pre-deduplicated parts (PreDedupController)
          HT engine (useHT=1): per-batch fingerprint count     (device)
       -> finalize: bins recomputed from words, host merge    (device -> host)
       -> per-bin text or npz output + manifest               (shared, host)
@@ -18,7 +19,6 @@ package's.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import json
 import os
@@ -28,13 +28,13 @@ import numpy as np
 import torch
 
 from .config import JobConfig
-from .core.bits import num_words
+from .core.bits import empty_table, num_words
 from .ingest import batch as batching
 from .ingest.prefetch import prefetched
 from .ops import binhash, count_hash, count_sort, cuda_extract
 from .output import manifest as manifest_mod
 from .output import writer
-from .utils.timing import StageTimer, maybe_profile
+from .utils.timing import StageTimer, fenced_span, maybe_profile
 
 
 class CountResult(NamedTuple):
@@ -61,22 +61,6 @@ def resolve_device(device) -> torch.device:
             f"device {dev} requested but torch.cuda.is_available() is False"
         )
     return dev
-
-
-@contextlib.contextmanager
-def _span(timer: StageTimer, name: str, *devs: torch.device):
-    """Timer span that waits for its CUDA devices at its end, so each span
-    holds its own device work rather than the work queued before it; the
-    wait is its child span ``sync_wait``, and each synchronize counts in
-    ``syncs``."""
-    with timer.span(name):
-        yield
-        cuda = [dev for dev in dict.fromkeys(devs) if dev.type == "cuda"]
-        if cuda:
-            with timer.span("sync_wait"):
-                for dev in cuda:
-                    torch.cuda.synchronize(dev)
-            timer.count("syncs", len(cuda))
 
 
 def table_to_device(words: np.ndarray, counts: np.ndarray, bins: np.ndarray, device):
@@ -225,6 +209,10 @@ class DeviceAccumulator:
     counts each move of the table to the host, the last one at finalize
     included, in ``spills``, and its bytes in ``d2h_bytes``.
 
+    A merge window holds parts of one kind, raw (``add_raw``) or weighted
+    (``add_part``): a part of the other kind merges the pending ones before
+    its own checks.  ``check`` merges them and reads the table's counters.
+
     Capacity pressure is tracked with conservative host-side upper bounds;
     an exact (blocking) scalar read happens only when a spill decision
     needs it.  ``unique_ub`` — a caller-asserted bound on total distinct
@@ -281,6 +269,8 @@ class DeviceAccumulator:
 
     def add_raw(self, cols: tuple) -> None:
         """Buffer one batch of pre-sentineled key columns (weight 1 each)."""
+        if self.pending and self.pending[-1][1] is not None:  # close a window of weighted parts
+            self._merge_pending()
         n = int(cols[0].shape[0])
         self._append((tuple(cols), None), n, n)
 
@@ -300,6 +290,8 @@ class DeviceAccumulator:
         from table_to_device.  The part's weight total (one device read)
         bounds the device weight; the JAX version uses its row count,
         which undercounts a compacted part."""
+        if self.pending and self.pending[-1][1] is None:  # close a window of raw parts
+            self._merge_pending()
         weight = int(wts.sum())
         if weight > count_sort.WEIGHT_LIMIT:
             raise ValueError(f"part weight {weight} exceeds WEIGHT_LIMIT")
@@ -341,8 +333,7 @@ class DeviceAccumulator:
         while self._acc_ub + self._pend_ub + incoming > self.acc_cap:
             if self.pending:
                 # merge first: duplicates may collapse the pending bound
-                self._merge_pending()
-                stats = self._stats()
+                stats = self.check()
                 self._acc_ub = stats["n_unique"]
             elif self._acc_ub > 0:
                 self._raise_if_lost(stats)
@@ -357,6 +348,13 @@ class DeviceAccumulator:
             return {"n_unique": 0, "overflow": 0}
         n_u, over = torch.stack(self.state[2:]).tolist()
         return {"n_unique": n_u, "overflow": over}
+
+    def check(self) -> dict:
+        """Merge the pending parts into the table, then return its counters
+        ``n_unique`` and ``overflow`` (one device read), as
+        ``DistributedCounter.check`` does."""
+        self._merge_pending()
+        return self._stats()
 
     def _raise_if_lost(self, stats: dict) -> None:
         if stats["overflow"]:
@@ -381,20 +379,13 @@ class DeviceAccumulator:
     def spill(self) -> None:
         """Merge the pending parts and move the table to ``host_spills``
         (a checkpoint persists them); raises if a unique was lost."""
-        self._merge_pending()
-        stats = self._stats()
+        stats = self.check()
         self._raise_if_lost(stats)
         self._spill(stats)
 
     def finalize(self) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
         """-> (unique words [U, lanes] ascending, counts [U], bins [U]) on host."""
         self.spill()
-        if not self.host_spills:
-            return (
-                np.zeros((0, self.lanes), np.uint32),
-                np.zeros(0, np.int64),
-                np.zeros(0, np.int32),
-            )
         if len(self.host_spills) == 1:
             return self.host_spills[0]
         return merge_partials(self.host_spills, self.lanes)
@@ -405,7 +396,9 @@ def merge_partials(
 ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Host merge of unique sorted (words, counts, bins) tables: the native
     k-way heap merge (``output.native``) when it is built, else
-    numpy lexsort + reduceat."""
+    numpy lexsort + reduceat.  No parts give the empty table."""
+    if not parts:
+        return empty_table(W)
     if len(parts) > 1:
         from .output import native as out_native
 
@@ -424,6 +417,74 @@ def merge_partials(
     np.any(ws[1:] != ws[:-1], axis=1, out=new[1:])
     starts = np.flatnonzero(new)
     return ws[starts], np.add.reduceat(cs, starts), bs[starts]
+
+
+class QueuedPart(NamedTuple):
+    """A dedup step's result waiting in ``PreDedupController.queue``."""
+
+    batch_idx: int
+    npos: int  # the batch's windows: the distinct ratio's denominator
+    cols: tuple  # the compacted part's key columns
+    wts: torch.Tensor  # its weights
+    n_unique: torch.Tensor  # 0-d: the batch's distinct count
+    overflow: torch.Tensor  # 0-d: nonzero when the compaction dropped uniques
+    raw_cols: tuple  # the batch's key columns, admitted instead on overflow
+
+
+class PreDedupController:
+    """Which batches of the single device run the pre-dedup step
+    (``_batch_count_dedup``), and when its parts reach the accumulator.
+
+    ``prededup`` True or False forces the mode.  None is adaptive: while
+    the mode is off, every PROBE_EVERY-th batch runs the step as a probe;
+    each admitted part's distinct ratio turns the mode on (below
+    ENGAGE_BELOW) or off.  A step's result is admitted DEDUP_LAG batches
+    later, so mode flips and merge windows are a function of the input.
+    A part whose compaction overflowed is admitted as the batch's raw
+    columns instead (lossless) and turns adaptive mode off."""
+
+    PROBE_EVERY = 16
+    ENGAGE_BELOW = 0.24
+    DEDUP_LAG = 3
+
+    def __init__(self, acc: DeviceAccumulator, prededup: bool | None, timer: StageTimer):
+        self.acc = acc
+        self.timer = timer
+        self.adaptive = prededup is None
+        self.engaged = prededup is True
+        self.queue: list[QueuedPart] = []
+
+    def runs_dedup(self, batch_idx: int) -> bool:
+        return self.engaged or (self.adaptive and batch_idx % self.PROBE_EVERY == 0)
+
+    def push(self, batch_idx: int, npos: int, step: tuple) -> None:
+        """Queue batch ``batch_idx``'s ``_batch_count_dedup`` result."""
+        self.queue.append(QueuedPart(batch_idx, npos, *step))
+
+    def admit_due(self, batch_idx: int) -> None:
+        """Admit the queued parts of the batches DEDUP_LAG or more before
+        ``batch_idx``: their decisions steer this batch's step."""
+        while self.queue and self.queue[0].batch_idx <= batch_idx - self.DEDUP_LAG:
+            self._admit(self.queue.pop(0))
+
+    def drain(self) -> None:
+        """Admit every queued part: before a checkpoint, whose cursor
+        claims the batches, and before finalize."""
+        while self.queue:
+            self._admit(self.queue.pop(0))
+
+    def _admit(self, q: QueuedPart) -> None:
+        if int(q.overflow):
+            self.timer.count("dedup_overflows")
+            self.acc.add_raw(q.raw_cols)
+            self.timer.count("raw_parts")
+            if self.adaptive:
+                self.engaged = False
+            return
+        self.acc.add_part(q.cols, q.wts)
+        self.timer.count("dedup_parts")
+        if self.adaptive:
+            self.engaged = int(q.n_unique) / max(q.npos, 1) < self.ENGAGE_BELOW
 
 
 def count_batches(
@@ -445,12 +506,12 @@ def count_batches(
     fingerprint counts, merged on the host).  ``device_accumulate``
     defaults to True for the sort engine on CUDA (and whenever
     ``unique_ub`` or a forced ``prededup`` asks for the accumulator).
-    ``prededup``: per-batch count + compaction before accumulation.  None
-    (default) is adaptive: every 16th batch runs the dedup attempt as a
-    probe; a fit admits the compact part and its distinct ratio steers the
-    mode (engage below 0.24), decided DEDUP_LAG batches later; an overflow
-    at the npos/4 cap admits the batch's raw columns instead.  True/False
-    force the mode.
+    Three routes: the HT engine and the host path (``device_accumulate``
+    off) bring each batch's table to the host and merge them there; the
+    accumulator route feeds a ``DeviceAccumulator``, whose merge windows
+    each hold one kind of part.  ``prededup`` steers its
+    ``PreDedupController``: None (default) is adaptive, True/False force
+    the per-batch count + compaction on or off.
 
     ``batches`` yield (codes, n_reads, n_bases), codes a numpy array or a
     tensor (moved to ``device``).
@@ -460,9 +521,6 @@ def count_batches(
     """
     dev = resolve_device(device)
     timer = timer or StageTimer()
-    parts = []
-    n_reads = 0
-    n_bases = 0
     W = num_words(k)
     if unique_ub is not None and engine != "sort":
         # the HT engine's per-batch loop has no host-side room checks for
@@ -483,66 +541,27 @@ def count_batches(
     device_accumulate = device_accumulate and engine == "sort"
     # k % 16 == 0: the bare sentinel is ambiguous; the flag lane restores it
     flagged = device_accumulate and not count_sort.sentinel_safe_for(k)
-    acc = (
-        DeviceAccumulator(k, m=m, B=B, unique_ub=unique_ub,
-                          extra_lanes=1 if flagged else 0, device=dev, timer=timer)
-        if device_accumulate
-        else None
-    )
-    PROBE_EVERY, ENGAGE_BELOW = 16, 0.24
-    DEDUP_LAG = int(os.environ.get("FASTKMER_DEDUP_LAG", "3"))
-    if flagged:
-        # the probe/dedup step is W-lane shaped: adaptive stays raw, a
-        # forced prededup is an error (never silently dropped)
-        if prededup is True:
-            raise NotImplementedError(
-                "single-chip prededup does not cover k % 16 == 0 (the "
-                "flagged-lane extraction); use adaptive"
-            )
-        prededup = False
-    dedup_mode = prededup is True
-    # dedup parts wait DEDUP_LAG batches and are admitted at a fixed
-    # dispatch-index lag, so mode flips and window flushes are a pure
-    # function of the input
-    dedup_pending: list = []  # (dispatch_idx, raw_cols, dcols, dwts, pos, n_u, over)
-    # merge windows stay single-kind (all raw or all dedup parts): a part
-    # of the other kind closes the open window first
-    window_kind: list = [None]
-
-    def _feed_window(kind: str, add) -> None:
-        if acc.pending and window_kind[0] != kind:
-            acc._merge_pending()
-        window_kind[0] = kind
-        add()
-        timer.count(f"{kind}_parts")
-
-    def _admit_dedup(entry) -> None:
-        nonlocal dedup_mode
-        _, raw_q, qcols, qwts, qpos, q_nu, q_over = entry
-        if int(q_over):
-            # the batch's compaction dropped uniques: admit its raw
-            # columns instead (lossless); adaptive mode disengages
-            timer.count("dedup_overflows")
-            _feed_window("raw", lambda: acc.add_raw(raw_q))
-            if prededup is None:
-                dedup_mode = False
-            return
-        _feed_window("dedup", lambda: acc.add_part(qcols, qwts))
-        if prededup is None:
-            dedup_mode = int(q_nu) / max(qpos, 1) < ENGAGE_BELOW
-
+    if flagged and prededup is True:
+        # the dedup step is W-lane shaped: adaptive stays raw, a forced
+        # prededup is an error (never silently dropped)
+        raise NotImplementedError(
+            "single-chip prededup does not cover k % 16 == 0 (the "
+            "flagged-lane extraction); use adaptive"
+        )
+    acc = feed = None
+    if device_accumulate:
+        acc = DeviceAccumulator(k, m=m, B=B, unique_ub=unique_ub,
+                                extra_lanes=1 if flagged else 0, device=dev, timer=timer)
+        feed = PreDedupController(acc, False if flagged else prededup, timer)
+    parts = []  # the host tables of the HT engine and the host path
     skip = 0
-    persisted_spills = 0
     if checkpointer is not None:
         # resume: the persisted parts re-enter the final merge, and the
         # batches they cover are skipped below
         skip = checkpointer.completed_batches()
-        if acc is not None:
-            acc.host_spills.extend(checkpointer.load_parts())
-            persisted_spills = len(acc.host_spills)
-        else:
-            parts.extend(checkpointer.load_parts())
+        (acc.host_spills if acc is not None else parts).extend(checkpointer.load_parts())
     coll = torch.zeros((), dtype=torch.bool, device=dev) if engine == "hash" else None
+    n_reads = n_bases = 0
     it = iter(batches)
     batch_idx = -1
     while True:
@@ -552,58 +571,29 @@ def count_batches(
             break
         codes, nr, nb = item
         batch_idx += 1
+        n_reads += nr
+        n_bases += nb
         if batch_idx < skip:  # counted before the interruption
-            n_reads += nr
-            n_bases += nb
             continue
-        # admit lagged dedup parts first: decisions from batch
-        # j - DEDUP_LAG take effect on this batch's dispatch kind
-        if acc is not None and dedup_pending:
-            with _span(timer, "device_merge", dev):
-                while dedup_pending and dedup_pending[0][0] <= batch_idx - DEDUP_LAG:
-                    _admit_dedup(dedup_pending.pop(0))
-        probe = (
-            acc is not None
-            and prededup is None
-            and not dedup_mode
-            and batch_idx % PROBE_EVERY == 0
-        )
-        with _span(timer, "device_count", dev):
+        if feed is not None and feed.queue:
+            with fenced_span(timer, "device_merge", dev):
+                feed.admit_due(batch_idx)
+        dedup = feed is not None and feed.runs_dedup(batch_idx)
+        with fenced_span(timer, "device_count", dev):
             codes_t = codes if isinstance(codes, torch.Tensor) else torch.from_numpy(codes)
             if codes_t.device.type == "cpu":
                 timer.count("h2d_bytes", codes_t.nbytes)
             codes_t = codes_t.to(dev)
             if engine == "hash":
                 dpart, coll = _batch_count_ht(codes_t, coll, k, m, B)
-            elif acc is not None and (dedup_mode or probe):
-                npos = codes.shape[0] * (codes.shape[1] - k + 1)
-                dcols, dwts, d_nu, d_over, d_raw = _batch_count_dedup(
-                    codes_t, k, m, B, _dedup_cap(npos)
-                )
-            elif acc is not None:
-                cols = _batch_extract_keys(codes_t, k, m, B, flagged)
-            else:
+            elif acc is None:
                 part = _batch_count(codes_t, k, m, B, timer)
-        if acc is not None:
-            with _span(timer, "device_merge", dev):
-                if dedup_mode or probe:
-                    dedup_pending.append(
-                        (batch_idx, d_raw, dcols, dwts, npos, d_nu, d_over)
-                    )
-                else:
-                    _feed_window("raw", lambda: acc.add_raw(cols))
-            if checkpointer is not None and (batch_idx + 1) % checkpointer.interval == 0:
-                with _span(timer, "checkpoint", dev):
-                    # the cursor claims every batch <= batch_idx is in the
-                    # persisted spills, so the in-flight dedup parts (and an
-                    # overflowed part's raw columns) are admitted first
-                    while dedup_pending:
-                        _admit_dedup(dedup_pending.pop(0))
-                    acc.spill()
-                    checkpointer.save_spills(batch_idx + 1, acc.host_spills[persisted_spills:],
-                                             persisted_spills)
-                    persisted_spills = len(acc.host_spills)
-        else:
+            elif dedup:
+                npos = codes.shape[0] * (codes.shape[1] - k + 1)
+                step = _batch_count_dedup(codes_t, k, m, B, _dedup_cap(npos))
+            else:
+                cols = _batch_extract_keys(codes_t, k, m, B, flagged)
+        if acc is None:
             with timer.span("host_compact"):
                 if engine == "hash":
                     part = table_to_host(*dpart, timer)
@@ -611,26 +601,35 @@ def count_batches(
                 parts.append(part)
                 if checkpointer is not None:
                     checkpointer.save_batch(batch_idx, *part)
-        n_reads += nr
-        n_bases += nb
+            continue
+        with fenced_span(timer, "device_merge", dev):
+            if dedup:
+                feed.push(batch_idx, npos, step)
+            else:
+                acc.add_raw(cols)
+                timer.count("raw_parts")
+        if checkpointer is not None and (batch_idx + 1) % checkpointer.interval == 0:
+            with fenced_span(timer, "checkpoint", dev):
+                # the cursor claims every batch <= batch_idx is in the
+                # persisted spills, so the queued dedup parts (and an
+                # overflowed part's raw columns) are admitted first
+                feed.drain()
+                acc.spill()
+                checkpointer.save_spills(batch_idx + 1, acc.host_spills)
     if coll is not None and bool(coll):  # the run's one read of the flag
         raise count_hash.FingerprintCollision(
             "64-bit fingerprint collision; re-run with the sort engine"
         )
-    with _span(timer, "device_merge", dev):
-        while dedup_pending:  # drain in-flight dedup parts before finalize
-            _admit_dedup(dedup_pending.pop(0))
-    with _span(timer, "merge", dev):
-        if acc is not None:
+    with fenced_span(timer, "device_merge", dev):
+        if feed is not None:
+            feed.drain()  # the queued dedup parts reach the table before finalize
+    with fenced_span(timer, "merge", dev):
+        if acc is None:
+            words, counts, bins = merge_partials(parts, W)
+        else:
             words, counts, bins = acc.finalize()
             if flagged:
                 words = words[:, :W]  # drop the constant flag lane
-        elif parts:
-            words, counts, bins = merge_partials(parts, W)
-        else:
-            words = np.zeros((0, W), np.uint32)
-            counts = np.zeros(0, np.int64)
-            bins = np.zeros(0, np.int32)
     return CountResult(
         words, counts, bins, int(counts.sum()), n_bases, n_reads, batch_idx + 1,
         timer.as_dict(), timer.records(), timer.counters(),

@@ -1,7 +1,8 @@
 """Structured per-stage timing — the port's copy of
 ``fastkmer_tpu.utils.timing``: ``StageTimer`` (span totals, each span's
-record and counters) and ``maybe_profile`` on ``torch.profiler`` in place
-of ``jax.profiler``.
+record and counters), ``fenced_span`` (a span that waits for its CUDA
+devices) and ``maybe_profile`` on ``torch.profiler`` in place of
+``jax.profiler``.
 
 A span recorder that can be dumped as a dict/JSON, in place of the
 reference's wall-clock prints (getDateDiff, package.scala:764-767).
@@ -108,6 +109,22 @@ class StageTimer:
             rows = sorted(self._records)
         return [dict(id=sid, name=name, start=start, end=end, parent=parent, thread=thread)
                 for sid, name, start, end, parent, thread in rows]
+
+
+@contextlib.contextmanager
+def fenced_span(timer: StageTimer, name: str, *devs: torch.device):
+    """Timer span that waits for its CUDA devices at its end, so each span
+    holds its own device work rather than the work queued before it; the
+    wait is its child span ``sync_wait``, and each synchronize counts in
+    ``syncs``."""
+    with timer.span(name):
+        yield
+        cuda = [dev for dev in dict.fromkeys(devs) if dev.type == "cuda"]
+        if cuda:
+            with timer.span("sync_wait"):
+                for dev in cuda:
+                    torch.cuda.synchronize(dev)
+            timer.count("syncs", len(cuda))
 
 
 @contextlib.contextmanager

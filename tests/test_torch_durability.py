@@ -4,7 +4,8 @@ host path, on the device accumulator, on the streaming mesh and on the
 per-batch mesh (super-k-mer transport and the HT engine): each resumed
 output is byte-identical to an uninterrupted JAX run's, and the
 checkpoint directory is emptied.  A checkpoint directory that an
-interrupted JAX run left behind resumes in the port to the same table.
+interrupted JAX run left behind resumes in the port to the same table,
+and one the host path wrote per batch resumes in the accumulator.
 Then verification and repair: binary outputs (and ``api.load_binary``),
 the binary repair guards,
 reruns that clean stale outputs, ``rollback_to``, ``repair_output`` from
@@ -94,11 +95,11 @@ def jax_mesh(data):
     return out
 
 
-def _dying(batch_file):
-    """batch_file that raises KeyboardInterrupt when batch DIE_AT is read."""
+def _dying(batch_file, at=DIE_AT):
+    """batch_file that raises KeyboardInterrupt when batch ``at`` is read."""
     def dying_batch_file(*a, **kw):
         for i, b in enumerate(batch_file(*a, **kw)):
-            if i == DIE_AT:
+            if i == at:
                 raise KeyboardInterrupt
             yield b
     return dying_batch_file
@@ -142,9 +143,9 @@ def test_resume_single_device_accumulator(data, jax_single, monkeypatch, tmp_pat
     spills = []
     real_save = tman.BatchCheckpointer.save_spills
 
-    def spy(self, completed, parts, first):
-        spills.append(len(parts))
-        return real_save(self, completed, parts, first)
+    def spy(self, completed, parts):
+        spills.append(len(parts) - self._cursor()["spills"])  # the new ones
+        return real_save(self, completed, parts)
 
     monkeypatch.setattr(tman.BatchCheckpointer, "save_spills", spy)
     _interrupt_then_resume(monkeypatch, lambda ck: tpipe.execute_job(
@@ -168,6 +169,40 @@ def test_resume_mesh(data, jax_mesh, monkeypatch, tmp_path, label):
         str(tmp_path / "ck"))
     assert _dir_bytes(cfg.output_dir) == jax_mesh[label]
     assert res.n_batches > DIE_AT
+    shutil.rmtree(cfg.output_dir)
+
+
+@pytest.mark.parametrize("label", ["smer", "ht"])
+def test_per_batch_checkpoint_resumes_on_the_per_batch_mesh(data, jax_mesh, monkeypatch,
+                                                           tmp_path, label):
+    """A directory the host path checkpointed per batch, resumed twice by
+    the per-batch mesh: its first checkpoint persists the loaded parts as
+    spills beside its own, so the second resume still covers every batch."""
+    d, fa, _ = data
+    cfg = _cfg(d, fa, f"m_{label}_", use_ht=label == "ht")
+    kw = {"smer_transport": True} if label == "smer" else {}
+    mesh = tx.make_mesh(4, "cpu")
+    ck = str(tmp_path / "ck")
+
+    def mesh_run():
+        return tdriver.execute_job_distributed(
+            cfg, mesh, verbose=False, checkpoint_dir=ck, checkpoint_interval=2, **kw)
+
+    real = tbatch.batch_file
+    for run, at, cursor in (
+        (lambda: tpipe.execute_job(cfg, verbose=False, device="cpu", checkpoint_dir=ck,
+                                   checkpoint_interval=2), DIE_AT, DIE_AT),
+        (mesh_run, DIE_AT + 2, DIE_AT + 1),
+    ):
+        monkeypatch.setattr(tbatch, "batch_file", _dying(real, at))
+        with pytest.raises(KeyboardInterrupt):
+            run()
+        monkeypatch.setattr(tbatch, "batch_file", real)
+        assert tman.BatchCheckpointer(ck).completed_batches() == cursor
+    assert tman.BatchCheckpointer(ck)._cursor()["spills"] > DIE_AT  # the loaded parts too
+    res = mesh_run()
+    assert _dir_bytes(cfg.output_dir) == jax_mesh[label]
+    assert res.n_batches > DIE_AT + 2 and not os.listdir(ck)
     shutil.rmtree(cfg.output_dir)
 
 
@@ -262,8 +297,8 @@ def test_rerun_cleans_stale_outputs(data, tmp_path):
 def test_checkpoint_rollback(tmp_path):
     ckpt = tman.BatchCheckpointer(str(tmp_path), interval=2)
     part = [(np.ones((1, 2), np.uint32), np.ones(1, np.int64), np.zeros(1, np.int32))]
-    ckpt.save_spills(2, part, 0)
-    ckpt.save_spills(4, part, 1)
+    ckpt.save_spills(2, part)
+    ckpt.save_spills(4, part * 2)  # every part the run holds: one new
     assert ckpt.completed_batches() == 4 and len(ckpt.load_parts()) == 2
     assert ckpt.rollback_to(10) == 4  # past the cursor: a no-op
     assert ckpt.rollback_to(2) == 2
@@ -271,6 +306,36 @@ def test_checkpoint_rollback(tmp_path):
     assert not (tmp_path / "spill000001.npz").exists()
     assert ckpt.rollback_to(1) == 0  # below every entry: the zero state
     assert ckpt.load_parts() == [] and not (tmp_path / "spill000000.npz").exists()
+
+
+def test_per_batch_checkpoint_resumes_in_the_accumulator(tmp_path):
+    """A directory the host path checkpointed per batch, resumed by the
+    accumulator (a run moved to the card): its first spill checkpoint
+    persists the loaded parts with the new spills, so a second resume
+    still covers every batch."""
+    rng = np.random.default_rng(3)
+    batches = [(rng.integers(0, 4, (16, 256), dtype=np.uint8), 16, 16 * 256)
+               for _ in range(10)]
+
+    class Stop(Exception):
+        pass
+
+    def until(n):
+        for i, b in enumerate(batches):
+            if i == n:
+                raise Stop
+            yield b
+
+    ckpt = tman.BatchCheckpointer(str(tmp_path), interval=2)
+    for n, accumulate in ((4, False), (7, True)):
+        with pytest.raises(Stop):
+            tpipe.count_batches(until(n), K, M, B, device="cpu",
+                                device_accumulate=accumulate, checkpointer=ckpt)
+    assert ckpt.completed_batches() == 6 and ckpt._cursor()["spills"] == 5
+    got = tpipe.count_batches(batches, K, M, B, device="cpu", device_accumulate=True,
+                              checkpointer=ckpt)
+    want = tpipe.count_batches(batches, K, M, B, device="cpu", device_accumulate=False)
+    _assert_tables_equal(got, want)
 
 
 def _bins(out: str) -> dict[str, bytes]:

@@ -228,8 +228,14 @@ def test_table_sidecar_and_checkpoint_files_are_the_jax_ones(tmp_path):
         assert other.load_table_sidecar(out) is None and writer_man.load_table_sidecar(out) is None
         ck = str(tmp_path / f"ck_{d}")
         c = writer_man.BatchCheckpointer(ck, interval=2)
-        c.save_spills(2, [(words, counts, bins)], 0)
-        c.save_spills(4, [(words[:5], counts[:5], bins[:5])] * 2, 1)
+        held = []
+        for completed, parts, first in ((2, [(words, counts, bins)], 0),
+                                        (4, [(words[:5], counts[:5], bins[:5])] * 2, 1)):
+            if writer_man is jman:  # the JAX checkpointer is told the first spill's number
+                c.save_spills(completed, parts, first)
+            else:  # the port's takes every part held and persists those past its cursor
+                c.save_spills(completed, held + parts)
+            held += parts
         r = other.BatchCheckpointer(ck)
         assert r.completed_batches() == 4 and r._cursor() == c._cursor()
         assert [p[0].shape[0] for p in r.load_parts()] == [200, 5, 5]

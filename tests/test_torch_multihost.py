@@ -206,7 +206,7 @@ else:
     ck = manifest.BatchCheckpointer(f"{out}/ck{rank}", interval=2)
     part = [(np.ones((1, 2), np.uint32), np.ones(1, np.int64), np.zeros(1, np.int32))]
     for c in range(2, 2 * (rank + 1) + 1, 2):  # rank r logged cursors 2, ..., 2(r + 1)
-        ck.save_spills(c, part, c // 2 - 1)
+        ck.save_spills(c, part * (c // 2))  # every part held: one new a cursor
     own = ck.completed_batches()
     agreed = multihost.agree_min(own, mesh.comm)
     res["agree"] = dict(own=own, agreed=agreed, resumed=ck.rollback_to(agreed),

@@ -273,3 +273,104 @@ def test_part_weights_past_int32_spill_instead_of_wrapping():
                                        np.zeros(1, np.int32), "cpu")
     with pytest.raises(ValueError, match="WEIGHT_LIMIT"):
         acc.add_part(cols, c)
+
+
+PK, PM, PB, PR, PL = 28, 10, 64, 64, 512
+
+
+def _pin_batches(kind: str) -> list:
+    """Fixed [R, L] code batches: 18 of distinct windows (each batch's
+    distinct count passes the dedup step's npos/4 cap), or 10 built from
+    four repeated rows (distinct ratio about 0.06) followed by 8 distinct."""
+    rng = np.random.default_rng(23)
+    out = []
+    if kind == "dup":
+        rows = rng.integers(0, 4, (4, PL), dtype=np.uint8)
+        out += [rows[rng.integers(0, 4, PR)] for _ in range(10)]
+    out += [rng.integers(0, 4, (PR, PL), dtype=np.uint8)
+            for _ in range(8 if kind == "dup" else 18)]
+    return [(c, PR, PR * PL) for c in out]
+
+
+def _spy_merges(monkeypatch) -> list:
+    """Record each accumulator merge as its parts' kinds: r raw, w weighted."""
+    merges = []
+    real = tpipe._acc_merge
+
+    def spy(parts, acc, block_sort=False):
+        merges.append("".join("r" if w is None else "w" for _, w in parts))
+        return real(parts, acc, block_sort)
+
+    monkeypatch.setattr(tpipe, "_acc_merge", spy)
+    return merges
+
+
+_DISTINCT_COUNTERS = {"raw_parts": 18, "spills": 9, "h2d_bytes": 589824, "d2h_bytes": 8939520}
+
+
+@pytest.mark.parametrize("kind,prededup,counters,merges", [
+    ("distinct", None, dict(_DISTINCT_COUNTERS, dedup_overflows=2), ["rr"] * 9),
+    ("distinct", True, dict(_DISTINCT_COUNTERS, dedup_overflows=18), ["rr"] * 9),
+    ("distinct", False, _DISTINCT_COUNTERS, ["rr"] * 9),
+    ("dup", None,
+     {"raw_parts": 10, "dedup_parts": 8, "dedup_overflows": 4, "spills": 4,
+      "h2d_bytes": 589824, "d2h_bytes": 4004160},
+     ["rr", "www", "www", "ww", "rr", "rr", "rr", "rr"]),
+], ids=["distinct-adaptive", "distinct-forced", "distinct-off", "dup-adaptive"])
+def test_count_batches_pre_dedup_feed_is_pinned(monkeypatch, kind, prededup, counters, merges):
+    """The accumulator route of ``count_batches`` on fixed batches: the
+    table equals the JAX package's on the same batches, and the counters,
+    the span names and the sequence of merge windows are pinned.  On
+    distinct batches every dedup step (the adaptive probes of batches 0
+    and 16, or every batch when forced) overflows its cap and the batch
+    goes in as raw columns; on the repeated rows the probe of batch 0
+    engages dedup mode three batches later, and the distinct tail's
+    overflows turn it off again."""
+    got_merges = _spy_merges(monkeypatch)
+    batches = _pin_batches(kind)
+    res = tpipe.count_batches(batches, PK, PM, PB, device="cpu",
+                              device_accumulate=True, prededup=prededup)
+    want = jpipe.count_batches(batches, PK, PM, PB, device_accumulate=True, prededup=prededup)
+    _assert_tables_equal(res, want, f"{kind} prededup={prededup}")
+    assert res.counters == counters
+    assert {s["name"] for s in res.spans} == {"ingest_wait", "device_count", "device_merge",
+                                               "merge"}
+    assert got_merges == merges
+
+
+def test_accumulator_merge_windows_hold_one_kind(monkeypatch):
+    """``add_part`` after ``add_raw`` merges the pending raw parts first,
+    and ``add_raw`` after ``add_part`` the pending weighted ones."""
+    merges = _spy_merges(monkeypatch)
+    codes = [torch.from_numpy(c) for c, _, _ in _pin_batches("dup")[:4]]
+    acc = tpipe.DeviceAccumulator(PK, fanin=16, m=PM, B=PB, unique_ub=1 << 16, device="cpu")
+    acc.add_raw(tpipe._batch_extract_keys(codes[0], PK, PM, PB))
+    acc.add_raw(tpipe._batch_extract_keys(codes[1], PK, PM, PB))
+    assert merges == []
+    cols, wts, _, over, _ = tpipe._batch_count_dedup(codes[2], PK, PM, PB,
+                                                     tpipe._dedup_cap(PR * (PL - PK + 1)))
+    assert int(over) == 0
+    acc.add_part(cols, wts)
+    assert merges == ["rr"]
+    acc.add_raw(tpipe._batch_extract_keys(codes[3], PK, PM, PB))
+    assert merges == ["rr", "w"]
+    acc.check()
+    assert merges == ["rr", "w", "r"]
+
+
+def test_accumulator_check_merges_and_reads_the_counters():
+    """``check`` merges the pending parts and returns ``n_unique`` and
+    ``overflow``; a table too small for the asserted bound counts its
+    losses in ``overflow``."""
+    codes = [torch.from_numpy(c) for c, _, _ in _pin_batches("dup")[:2]]
+    acc = tpipe.DeviceAccumulator(PK, fanin=16, m=PM, B=PB, device="cpu")
+    small = tpipe.DeviceAccumulator(PK, m=PM, B=PB, acc_cap=16, unique_ub=16, device="cpu")
+    for c in codes:
+        acc.add_raw(tpipe._batch_extract_keys(c, PK, PM, PB))
+        small.add_raw(tpipe._batch_extract_keys(c, PK, PM, PB))
+    assert len(acc.pending) == 2
+    stats = acc.check()
+    assert acc.pending == [] and stats["overflow"] == 0
+    assert stats["n_unique"] == len(acc.finalize()[1]) > 16
+    stats = small.check()
+    assert stats["n_unique"] == 16 and stats["overflow"] > 0

@@ -120,9 +120,9 @@ def test_span_waits_for_the_card_in_sync_wait(monkeypatch):
     monkeypatch.setattr(torch.cuda, "synchronize", synced.append)
     t = timing.StageTimer()
     cpu, c0, c1 = torch.device("cpu"), torch.device("cuda", 0), torch.device("cuda", 1)
-    with tpipe._span(t, "device_count", c0, cpu, c1, c0):
+    with timing.fenced_span(t, "device_count", c0, cpu, c1, c0):
         pass
-    with tpipe._span(t, "host", cpu):
+    with timing.fenced_span(t, "host", cpu):
         pass
     assert synced == [c0, c1] and t.counters() == {"syncs": 2}
     by = _by_name(t.records())
