@@ -189,17 +189,28 @@ failure, so the process exits non-zero:
    mode's on those batches; ``entry.entry()`` on the card equal to
    ``entry("cpu")`` on the same codes and ``entry.dryrun_multichip(4)``
    (four shards on the card) equal to the CPU run's five numbers, each
-   with kernel B launched.
+   with kernel B launched;
+19. the card's deflate of counts.npz (``deflate_phase``): the kernel's
+   stream equal to the plain version's on each member kind, random bytes
+   and zeros, in one piece and a piece a segment; ``write_binary`` on the
+   card against the host path; at the benchmark cell's table shape the
+   kernels' device time by CUDA events beside their bound, each array's
+   first segments equal to the plain version's (its ms timed on them),
+   the write's time and user CPU, its members read back, and the file's
+   size against numpy's (at most 3% over); and phase 5's reads through the
+   CLI with enableKryo=1, the deflate launched once a piece and the npz
+   holding phase 5's table.
 
 Phases 11-13 and 17 run after 7b, on its data; phase 7b's merge-window
-timing and phases 8-10 follow them, then 14-16, then 18.  Each new phase logs its
+timing and phases 8-10 follow them, then 14-16, then 18 and 19.  Each new phase logs its
 seconds.  The script imports only the port (``fastkmer_tpu_torch``),
 torch and numpy.
 
-The line before the last is one JSON object with the five kernels'
-launches (D's: split_merge's and resume_merge's summed; A's and B's also
-by phase, 14-18 included), errors, times, bounds and shares of the bound (``bound_share`` =
-bound_ms / ms); the last line is ``{"ok": true, "device": {...}}``.
+The line before the last is one JSON object with the six kernels'
+launches (the deflate's: phase 19's pieces; D's: split_merge's and
+resume_merge's summed; A's and B's also by phase, 14-18 included), errors,
+times, bounds and shares of the bound (``bound_share`` = bound_ms / ms);
+the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -227,6 +238,7 @@ BASE_CODE = np.full(256, 4, np.uint8)  # ASCII -> 2-bit code, 4 = not ACGT
 BASE_CODE[np.frombuffer(b"ACGT", np.uint8)] = np.arange(4, dtype=np.uint8)
 SORT_BLOCK = 1 << 15  # the merges' compaction block (pipeline._acc_merge)
 COUNT_TIMED = [(28, False), (31, False), (32, True), (55, False), (97, False), (155, False)]
+DEFLATE_ROWS = 4_770_000  # phase 19: the benchmark cell's distinct 55-mers
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1020,6 +1032,204 @@ def bench_entry_phase(cuda_extract) -> dict:
     return {"A": a18, "B": b_entry + b_dry}
 
 
+def read_set_table(rng, n: int) -> tuple:
+    """A read set's table at k = 55 shaped like the benchmark cell's: n
+    sorted 110-bit keys as [n, 4] uint32, 78% of the counts 1 and the rest
+    about 64x coverage's, bins under 2048."""
+    keys = rng.integers(0, 1 << 32, size=(n, 4), dtype=np.uint64).astype(np.uint32)
+    keys[:, 3] &= np.uint32(0xFFFFC000)
+    counts = np.where(rng.random(n) < 0.78, 1, rng.poisson(29, n).clip(2, None))
+    return (keys[np.lexsort(keys.T[::-1])], counts.astype(np.int64),
+            rng.integers(0, 2048, n).astype(np.int32))
+
+
+def user_s() -> float:
+    """This process's user CPU seconds, every thread's."""
+    return os.times().user
+
+
+def deflate_phase(rng, tmp: str, fa5: str, summary5: dict) -> dict:
+    """Phase 19: the card's deflate of counts.npz (``output.cuda_deflate``).
+    (a) The kernel's stream, CRC, segments and stored segments equal the
+    plain version's on each member of a 12,000-row read-set table, on
+    random bytes (stored) and on zeros, in one piece and a piece a segment.
+    (b) ``write_binary`` on the card: the host path's members, every CRC
+    holding, the same file twice, ``write_card_segments`` > 0.  (c) At the
+    benchmark cell's table shape (4,770,000 rows, 134 MB of members, two
+    pieces): the kernels' device time by CUDA events over the staged pieces
+    beside the bound (bytes in + out at 3.35 TB/s); each member's first
+    three segments equal to the plain version's (whose ms a segment is
+    timed on them), its CRC zlib's; the card path's write (median of 5,
+    host clock, its spans ``npz_encode`` and ``npz_file``, user CPU); its
+    members the arrays; the host path's write and ``np.savez_compressed``,
+    and the file's size against theirs (at most 3% over numpy's).  (d) The
+    main path: phase 5's reads (``fa5``) through ``cli.main`` with
+    enableKryo=1 on the card, the launches counted from 0 just before it:
+    one a piece of the job's ``write_card_segments``, the manifest
+    verified, and the npz read back holds phase 5's table (``summary5``'s
+    distinct k-mers and instances).  -> the kernel's numbers for the
+    summary."""
+    import statistics
+    import zipfile
+    import zlib
+
+    import torch
+
+    from fastkmer_tpu_torch import api, cli
+    from fastkmer_tpu_torch.benchmarks._common import HBM_BYTES_PER_S, time_ms
+    from fastkmer_tpu_torch.output import cuda_deflate, npz, writer
+    from fastkmer_tpu_torch.utils.timing import StageTimer
+
+    t19 = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    cuda_deflate.LAUNCHES = 0
+    differ = 0  # streams or CRCs of the kernel that differ from the plain version's
+    words, counts, bins = read_set_table(rng, 12_000)
+    cases = {"words": words, "counts": counts, "bins": bins, "k": np.int32(55),
+             "random": rng.integers(0, 256, 70_000, dtype=np.uint8),
+             "zeros": np.zeros(140_000, np.uint8)}
+    piece = cuda_deflate.PIECE
+    for name, arr in cases.items():
+        head, data = npz._member(arr)
+        want = cuda_deflate.deflate_plain(bytes(head) + bytes(data))
+        for cuda_deflate.PIECE in (piece, 1):
+            (pieces, *rest), = cuda_deflate.deflate([(head, data)], dev)
+            same = (b"".join(p.tobytes() for p in pieces) == want[0]
+                    and tuple(rest) == want[1:])
+            differ += not same
+            check(same, f"19 a: the kernel's {name} differs from the plain version's "
+                        f"(piece {cuda_deflate.PIECE}: {tuple(rest)} against {want[1:]})")
+        cuda_deflate.PIECE = piece
+    log(f"[deflate 19] (a) kernel == plain on {', '.join(cases)}, one piece and a piece "
+        f"a segment; {cuda_deflate.LAUNCHES} launches")
+    t = StageTimer()
+    card = writer.write_binary(os.path.join(tmp, "card"), words, counts, bins, 55, timer=t,
+                               device=dev)
+    again = writer.write_binary(os.path.join(tmp, "again"), words, counts, bins, 55,
+                                device=dev)
+    host = writer.write_binary(os.path.join(tmp, "host"), words, counts, bins, 55)
+    got = []
+    for path in (card, host):
+        with zipfile.ZipFile(path) as z:
+            check(z.testzip() is None, f"19 b: a CRC of {path} fails")
+            got.append({n: z.read(n) for n in z.namelist()})
+    check(got[0] == got[1], "19 b: the card's members differ from the host path's")
+    check(open(card, "rb").read() == open(again, "rb").read(), "19 b: two writes differ")
+    check(t.counters()["write_card_segments"] > 0, "19 b: no segment deflated on the card")
+    log(f"[deflate 19] (b) card members == host members, two writes identical, counters "
+        f"{json.dumps(t.counters())}")
+
+    # (c) the cell's table shape
+    words, counts, bins = read_set_table(rng, DEFLATE_ROWS)
+    arrays = {"words": words, "counts": counts, "bins": bins, "k": np.int32(55)}
+    members = [npz._member(a) for a in arrays.values()]
+    nbytes = sum(len(h) + len(d) for h, d in members)
+    d = cuda_deflate.Deflater(members, dev)
+    check(len(d.pieces) <= 2, f"19 c: {len(d.pieces)} pieces do not fit two slots")
+    for k in range(len(d.pieces)):
+        d.stage(k)
+    kernel_ms = time_ms(lambda: [d.run(k) for k in range(len(d.pieces))], 5,
+                        setup=d.state.zero_)
+    streams = [[] for _ in members]
+    for k in range(len(d.pieces)):
+        for m, part in d.collect(k):
+            streams[m].append(part.tobytes())
+    streams = [b"".join(x) for x in streams]
+    crcs = [crc for crc, _, _ in d.totals()]
+    plain_s, plain_segs = 0.0, 0
+    for (head, data), stream, crc in zip(members, streams, crcs):
+        differ += crc != zlib.crc32(data, zlib.crc32(head))
+        if len(data) < 3 * cuda_deflate.SEG:
+            continue
+        raw = bytes(head) + bytes(data[:3 * cuda_deflate.SEG])
+        t0 = time.perf_counter()
+        want = cuda_deflate.deflate_plain(raw, segments=3)[0]
+        plain_s += time.perf_counter() - t0
+        plain_segs += 3
+        differ += stream[:len(want)] != want
+    check(differ == 0 and plain_segs == 9,
+          f"19 c: {differ} streams or CRCs differ from the plain version's or zlib's")
+    path = os.path.join(tmp, "counts.npz")
+    npz.write_npz(path, arrays, device=dev)  # warm
+    walls, spans, users = [], [], []
+    for _ in range(5):
+        t = StageTimer()
+        torch.cuda.synchronize()
+        t0, u0 = time.perf_counter(), user_s()
+        npz.write_npz(path, arrays, timer=t, device=dev)
+        walls.append(time.perf_counter() - t0)
+        users.append(user_s() - u0)
+        spans.append(t.as_dict())
+    counters = t.counters()
+    card_size = os.path.getsize(path)
+    with np.load(path, allow_pickle=False) as z:
+        check(all(np.array_equal(z[n], a) for n, a in arrays.items()),
+              "19 c: the card's npz members are not the arrays")
+    bound_ms = (nbytes + card_size) / HBM_BYTES_PER_S * 1e3
+    segs = counters["write_card_segments"]
+    host_walls, host_users = [], []
+    for _ in range(2):
+        t0, u0 = time.perf_counter(), user_s()
+        npz.write_npz(os.path.join(tmp, "host.npz"), arrays)
+        host_walls.append(time.perf_counter() - t0)
+        host_users.append(user_s() - u0)
+    t0 = time.perf_counter()
+    np.savez_compressed(os.path.join(tmp, "numpy.npz"), **arrays)
+    numpy_s = time.perf_counter() - t0
+    host_size = os.path.getsize(os.path.join(tmp, "host.npz"))
+    numpy_size = os.path.getsize(os.path.join(tmp, "numpy.npz"))
+    check(card_size <= 1.03 * numpy_size,
+          f"19 c: the card's npz {card_size} B is over 3% above numpy's {numpy_size} B")
+    log(f"[deflate 19] (c) {nbytes} member bytes, {segs} segments in {len(d.pieces)} pieces "
+        f"({counters['write_stored_segments']} stored): kernels {kernel_ms:.3f} ms (CUDA "
+        f"events, median of 5) against a {bound_ms:.4f} ms bound; first 3 segments of each "
+        f"array == plain, CRCs == zlib's; card write {statistics.median(walls) * 1e3:.1f} ms "
+        f"(runs {', '.join(f'{w * 1e3:.1f}' for w in walls)}; npz_encode "
+        f"{statistics.median(s['npz_encode'] for s in spans) * 1e3:.1f}, npz_file "
+        f"{statistics.median(s['npz_file'] for s in spans) * 1e3:.1f}; user CPU "
+        f"{statistics.median(users):.2f} s); plain {plain_s / plain_segs * 1e3:.1f} ms a "
+        f"segment ({plain_s * 1e3:.1f} ms for {plain_segs}); host path "
+        f"{', '.join(f'{w * 1e3:.1f}' for w in host_walls)} ms (user CPU "
+        f"{', '.join(f'{u:.2f}' for u in host_users)} s); np.savez_compressed "
+        f"{numpy_s:.2f} s; sizes card {card_size}, host {host_size}, numpy {numpy_size} "
+        f"({card_size / numpy_size - 1:+.4%})")
+    del d, arrays, members, words, counts, bins
+
+    # (d) the main path: an enableKryo job on the card over phase 5's reads
+    stats = os.path.join(tmp, "kryo.json")
+    argv = ["28", "10", "3", "2048", "0", "0", fa5, tmp + "/", "kryo_", "1", "1", "0",
+            "--device", "cuda", "--reads-per-batch", "4096", "--read-len", "4096",
+            "--unique-ub", str(GENOME), "--stats-json", stats]
+    launches = cuda_deflate.LAUNCHES
+    cuda_deflate.LAUNCHES = 0
+    check(cli.main(argv) == 0, "19 d: the enableKryo job failed")
+    job_launches = cuda_deflate.LAUNCHES
+    cuda_deflate.LAUNCHES += launches
+    summary = json.load(open(stats))
+    jc = summary["counters"]
+    out = summary["output_dir"]
+    check(jc["write_card_segments"] > 0
+          and job_launches == -(-jc["write_card_segments"] // cuda_deflate.PIECE),
+          f"19 d: {job_launches} launches for {jc['write_card_segments']} card segments")
+    check(api.verify_output(out)["ok"], "19 d: the manifest does not verify")
+    with zipfile.ZipFile(os.path.join(out, "counts.npz")) as z:
+        check(z.testzip() is None, "19 d: a CRC of the job's npz fails")
+    res = api.load_binary(os.path.join(out, "counts.npz"))
+    n_rows, total = len(res.counts), int(np.asarray(res.counts).sum())
+    check((n_rows, total) == (summary5["n_unique"], summary5["n_instances"]),
+          f"19 d: the npz holds {n_rows} k-mers, {total} instances; phase 5 "
+          f"{summary5['n_unique']}, {summary5['n_instances']}")
+    log(f"[deflate 19] (d) enableKryo job on phase 5's reads: {job_launches} launches, "
+        f"write_card_segments {jc['write_card_segments']}, write_stored_segments "
+        f"{jc['write_stored_segments']}, write_data {summary['timings']['write_data']:.3f} s "
+        f"(npz_encode {summary['timings']['npz_encode']:.3f}, npz_file "
+        f"{summary['timings']['npz_file']:.3f}); {n_rows} k-mers, {total} instances == phase "
+        f"5's; phase 19 {time.perf_counter() - t19:.2f} s")
+    return {"launches": cuda_deflate.LAUNCHES, "err": differ, "ms": kernel_ms,
+            "plain_ms": plain_s * 1e3, "bound_ms": bound_ms,
+            "extra": {"plain_segments": plain_segs, "segments": segs}}
+
+
 def main() -> int:
     try:
         import torch
@@ -1044,7 +1254,7 @@ def main() -> int:
         from fastkmer_tpu_torch.ops import count_sort, cuda_extract, cuda_sort, extract
         from fastkmer_tpu_torch import pipeline
         from fastkmer_tpu_torch.config import JobConfig
-        from fastkmer_tpu_torch.output import manifest
+        from fastkmer_tpu_torch.output import cuda_deflate, manifest
         from fastkmer_tpu_torch.utils.timing import TRACE_FILE
     except ImportError as e:
         print(f"chip_smoke: the repository is not beside this script ({e})", file=sys.stderr)
@@ -1068,16 +1278,16 @@ def main() -> int:
     # --- 2. build --------------------------------------------------------
     t0 = time.perf_counter()
     libraries = (cuda_extract.library, cuda_sort.library, cuda_bitonic_merge.library,
-                 cuda_probe.library)
+                 cuda_probe.library, cuda_deflate.library)
     with ThreadPoolExecutor(len(libraries)) as pool:  # one nvcc per source, started together
         list(pool.map(lambda build: build(), libraries))
-    log(f"[build] extract, block sort, bitonic merge and pass probe kernels built and loaded "
-        f"in {time.perf_counter() - t0:.2f} s")
+    log(f"[build] extract, block sort, bitonic merge, pass probe and deflate kernels built "
+        f"and loaded in {time.perf_counter() - t0:.2f} s")
     from fastkmer_tpu_torch.utils import cudabuild
 
     for lib, srcs in (("fkextract", ("extract.cu",)), ("fkblocksort", ("block_sort.cu",)),
                       ("fkbitonicmerge", ("bitonic_merge.cu",)),
-                      ("fkpassprobe", ("pass_probe.cu",))):
+                      ("fkpassprobe", ("pass_probe.cu",)), ("fkdeflate", ("deflate.cu",))):
         for fn, (regs, spill, stack) in sorted(
                 ptxas_kernels(cudabuild.ptxas_report(lib, srcs)).items()):
             log(f"[build] ptxas {fn}: {regs} registers, {spill} spill bytes, "
@@ -1351,6 +1561,8 @@ def main() -> int:
         log(f"[real] stage timings: {json.dumps(summary['timings'])}")
         log(f"[real] peak device memory {peak / 2**30:.2f} GiB")
         out5 = out_dir
+        fa5 = shutil.copy(fa, os.path.join(keep, "reads5.fa"))  # phase 19's enableKryo job
+        summary5 = {k: summary[k] for k in ("n_unique", "n_instances")}
 
         # --- 5b. phase 5 with the block-sort compaction ------------------------
         cuda_sort.LAUNCHES = 0
@@ -1853,6 +2065,10 @@ def main() -> int:
     # --- 18. the bench and entry layer: the bench, entry() and the dry run ----
     bench18 = bench_entry_phase(cuda_extract)
 
+    # --- 19. the card's deflate of counts.npz ---------------------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        deflate19 = deflate_phase(rng, tmp, fa5, summary5)
+
     log(f"[smoke] every phase passed in {time.perf_counter() - t_run:.1f} s")
     # bounds: each input byte read once, each output byte written once
     rp = 4096 * (4096 - 28 + 1)
@@ -1873,6 +2089,10 @@ def main() -> int:
         ("bitonic_merge", "benchmarks/pallas_bitonic_merge.py:116 (bitonic_merge, "
          "_mk_cross_kernel + _mk_clean_kernel)", split_launches + resume_launches, merge_err,
          merge_ms, merge_plain_ms, merge_bound_ms, merge_lib_ms, "bitonic_merge.cu"),
+        ("deflate", "none: the JAX package writes counts.npz with np.savez_compressed "
+         "(fastkmer_tpu/output/writer.py:151)", deflate19["launches"], deflate19["err"],
+         deflate19["ms"],
+         deflate19["plain_ms"], deflate19["bound_ms"], None, "deflate.cu"),
     ]
     # launches on each path that runs a kernel: A on the single device (5,
     # 11 under useHT=1, 14-15 multiseq), B on the meshes (7 streaming, 12 HT
@@ -1885,8 +2105,10 @@ def main() -> int:
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": f"fastkmer_tpu_torch/csrc/{src}",
         "replaces": replaces, "launches": n, "max_abs_err": err, "ms": ms, "plain_ms": pms,
-        "bound_ms": bound, "bound_by": "bytes", "library_ms": lib, "bound_share": bound / ms,
+        "bound_ms": bound, "bound_by": "bytes", "library_ms": lib,
+        "bound_share": bound / ms if ms else None,
         **({"launches_by_phase": by_phase[name]} if name in by_phase else {}),
+        **(deflate19["extra"] if name == "deflate" else {}),
     } for name, replaces, n, err, ms, pms, bound, lib, src in kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -129,7 +129,7 @@ def execute_multiseq_job_distributed(cfg, mesh: exchange.Mesh, cap: int | None =
     if cfg.write:
         with timer.span("write_output"):
             _write_multiseq_output(cfg, words, counts, bins, pair_dist, measure,
-                                   keep_table=keep_table)
+                                   keep_table=keep_table, timer=timer, device=devs[0])
     if ckpt is not None:
         ckpt.clear()  # the run completed
     return MultiseqResult(

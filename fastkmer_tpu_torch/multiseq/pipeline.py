@@ -450,7 +450,7 @@ def execute_multiseq_job(
     if cfg.write:
         with timer.span("write_output"):
             _write_multiseq_output(cfg, words, counts, bins, pair_dist, measure,
-                                   keep_table=keep_table)
+                                   keep_table=keep_table, timer=timer, device=dev)
     if ckpt is not None:
         ckpt.clear()  # the run completed
     return MultiseqResult(
@@ -460,10 +460,11 @@ def execute_multiseq_job(
 
 
 def _write_multiseq_output(cfg, words, counts, bins, pair_dist, measure,
-                           keep_table: bool = False) -> None:
+                           keep_table: bool = False, timer=None, device=None) -> None:
     """Bin files (per-k-mer SUM over sequences,
     SparkMultiSequenceKmerCounter.scala:487), or counts.npz for
-    ``use_kryo_serializer``, + distances.json + a manifest whose
+    ``use_kryo_serializer`` (deflated on the card for a CUDA ``device``,
+    with the count job's spans and counters on ``timer``), + distances.json + a manifest whose
     extra_files entry checksums the distances, so verify_output covers a
     multiseq directory completely.  ``keep_table`` writes the summed table
     as the sidecar: repair_output rewrites damaged bins from it without a
@@ -475,7 +476,8 @@ def _write_multiseq_output(cfg, words, counts, bins, pair_dist, measure,
     cfg_dict = base.dataclasses_dict(cfg)
     if cfg.use_kryo_serializer:
         writer.write_binary_with_manifest(
-            cfg.output_dir, cfg_dict, uw, uc, ub, cfg.k, extra_files=dist_extra,
+            cfg.output_dir, cfg_dict, uw, uc, ub, cfg.k, extra_files=dist_extra, timer=timer,
+            device=device,
         )
     else:
         hashes = writer.write_bin_files(cfg.output_dir, uw, uc, ub, cfg.k)

@@ -1,5 +1,5 @@
-"""The binary output's npz, deflated in blocks on every core the process
-may use.
+"""The binary output's npz, deflated on the card for a CUDA device and in
+blocks on every core the process may use for the CPU.
 
 ``write_npz`` writes the container ``np.savez_compressed`` writes: a zip
 of one ``<name>.npy`` member an array, in the order given, each DEFLATED
@@ -16,6 +16,13 @@ so that the blocks laid end to end are one deflate stream.  zlib releases
 the interpreter lock while it deflates, so a thread pool runs the blocks
 on as many cores as there are blocks.  ``BLOCK`` is a constant: the file's
 bytes do not depend on how many cores the host has.
+
+On a CUDA device the members are deflated on the card instead
+(``cuda_deflate``: 64 KiB segments, each matching into the 32 KiB before
+it, and a CRC-32 computed there), and the host only lays out the same
+container around the bytes that come back.  The two paths share the
+container and nothing of the deflate; each one's bytes depend on the table
+alone.
 """
 
 from __future__ import annotations
@@ -29,6 +36,9 @@ import zlib
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
+import torch
+
+from . import cuda_deflate
 
 BLOCK = 1 << 20  # input bytes a deflate block
 WINDOW = 1 << 15  # deflate's window: the dictionary a block is primed with
@@ -93,19 +103,54 @@ def _end_records(count: int, start: int, end: int) -> bytes:
                           min(count, 0xFFFF), min(size, _MASKED), min(start, _MASKED), 0))
 
 
-def write_npz(path: str, arrays: dict, timer=None) -> None:
-    """Write ``arrays`` ({name: array}) to ``path`` as
-    ``np.savez_compressed`` would, the deflate spread over a thread pool
-    sized from ``os.sched_getaffinity`` and capped at the blocks of the
-    members that have more than one; a member of one block is deflated on
-    the calling thread.  A ``timer`` (utils.timing.StageTimer) counts
-    ``write_blocks`` (deflate blocks written) and ``write_threads`` (the
-    pool's workers, 1 without a pool)."""
+class _Zip:
+    """The container, written in stream order: ``start`` opens a member
+    (its local header, completed at the end), its deflate bytes follow with
+    ``write``, and ``close`` with each member's CRC-32 fills the headers in
+    and writes the central directory and the end records."""
+
+    def __init__(self, f) -> None:
+        self.f, self.members = f, []  # (name, uncompressed size, header offset)
+
+    def start(self, name: bytes, size: int) -> None:
+        self.members.append((name, size, self.f.tell()))
+        self.f.write(_local_header(name, 0, 0, 0))
+
+    def write(self, data) -> None:
+        self.f.write(data)
+
+    def close(self, crcs: list) -> None:
+        end = self.f.tell()
+        ends = [offset for _, _, offset in self.members[1:]] + [end]
+        entries = []
+        for (name, size, offset), stop, crc in zip(self.members, ends, crcs):
+            csize = stop - offset - 50 - len(name)
+            self.f.seek(offset)
+            self.f.write(_local_header(name, crc, size, csize))
+            entries.append(_central_entry(name, crc, size, csize, offset))
+        self.f.seek(end)
+        self.f.write(b"".join(entries))
+        self.f.write(_end_records(len(entries), end, self.f.tell()))
+
+
+def write_npz(path: str, arrays: dict, timer=None, device=None) -> None:
+    """Write ``arrays`` ({name: array}) to ``path`` in
+    ``np.savez_compressed``'s container.  On a CUDA ``device`` the members
+    are deflated on the card (``_write_card``); otherwise (None or the CPU)
+    on a thread pool sized from ``os.sched_getaffinity`` and capped at the
+    blocks of the members that have more than one, a member of one block
+    on the calling thread.  A ``timer`` (utils.timing.StageTimer) counts
+    ``write_card_segments`` (segments deflated on the card, 0 here) and,
+    on the host, ``write_blocks`` (deflate blocks written) and
+    ``write_threads`` (the pool's workers, 1 without a pool)."""
     members = [(f"{name}.npy".encode(), *_member(a)) for name, a in arrays.items()]
+    if device is not None and torch.device(device).type == "cuda":
+        _write_card(path, members, timer, torch.device(device))
+        return
     blocks = [_blocks(head, data) for _, head, data in members]
     pooled = sum(len(b) for b in blocks if len(b) > 1)
     workers = min(len(os.sched_getaffinity(0)), pooled)
-    entries = []
+    crcs = []
     with open(path, "wb") as f, (ThreadPoolExecutor(workers) if workers > 1
                                  else contextlib.nullcontext()) as pool:
         # every block is queued before the first is written, so the pool
@@ -114,27 +159,52 @@ def write_npz(path: str, arrays: dict, timer=None) -> None:
                                     + [pool.submit(_deflate, *b) for b in bl])
                   if pool is not None and len(bl) > 1 else None
                   for (_, head, data), bl in zip(members, blocks)]
+        z = _Zip(f)
         for (name, head, data), bl, q in zip(members, blocks, queued):
-            offset = f.tell()
-            f.write(_local_header(name, 0, 0, 0))  # rewritten once the sizes are known
+            z.start(name, len(head) + len(data))
             if q is None:
                 for b in bl:
-                    f.write(_deflate(*b))
-                crc = _crc(head, data)
+                    z.write(_deflate(*b))
+                crcs.append(_crc(head, data))
             else:
                 crc = q.popleft()
                 while q:
-                    f.write(q.popleft().result())
-                crc = crc.result()
-            end = f.tell()
-            size, csize = len(head) + len(data), end - offset - 50 - len(name)
-            f.seek(offset)
-            f.write(_local_header(name, crc, size, csize))
-            f.seek(end)
-            entries.append(_central_entry(name, crc, size, csize, offset))
-        start = f.tell()
-        f.write(b"".join(entries))
-        f.write(_end_records(len(entries), start, f.tell()))
+                    z.write(q.popleft().result())
+                crcs.append(crc.result())
+        z.close(crcs)
     if timer is not None:
+        timer.count("write_card_segments", 0)
         timer.count("write_blocks", sum(len(b) for b in blocks))
         timer.count("write_threads", max(workers, 1))
+
+
+def _write_card(path: str, members: list, timer, device: torch.device) -> None:
+    """``write_npz`` on the card.  The pieces come back in stream order
+    while the card codes the next, and each is written as it comes: the
+    spans ``npz_encode`` (the host's copies in, launches and waits for the
+    card's bytes, the last ending in a synchronize) and ``npz_file`` (the
+    file's writes) alternate.  Counts ``write_card_segments`` and
+    ``write_stored_segments`` (segments the stored form was shorter for)."""
+
+    def span(name: str):
+        return timer.span(name) if timer is not None else contextlib.nullcontext()
+
+    stream = cuda_deflate.deflate_stream([(head, data) for _, head, data in members], device)
+    with open(path, "wb") as f:
+        z = _Zip(f)
+        while True:
+            with span("npz_encode"):
+                m, got = next(stream)
+                if m is None:
+                    torch.cuda.synchronize(device)
+            with span("npz_file"):
+                if m is None:
+                    z.close([crc for crc, _, _ in got])
+                    break
+                if m == len(z.members):  # the member's first bytes
+                    name, head, data = members[m]
+                    z.start(name, len(head) + len(data))
+                z.write(got)
+    if timer is not None:
+        timer.count("write_card_segments", sum(segs for _, segs, _ in got))
+        timer.count("write_stored_segments", sum(stored for _, _, stored in got))

@@ -138,11 +138,12 @@ def _format_lines(words: np.ndarray, counts: np.ndarray, k: int) -> bytes:
 
 
 def write_binary(out_dir: str, words: np.ndarray, counts: np.ndarray, bins: np.ndarray,
-                 k: int, name: str = "counts.npz", clean: bool = True, timer=None) -> str:
+                 k: int, name: str = "counts.npz", clean: bool = True, timer=None,
+                 device=None) -> str:
     """Binary output (enableKryo=1): the npz in place of the reference's
-    Kryo variant, ``np.savez_compressed``'s container deflated in blocks
-    over the host's cores (npz.write_npz, which counts ``write_blocks``
-    and ``write_threads`` on a ``timer``).  A multi-rank writer passes its
+    Kryo variant, ``np.savez_compressed``'s container deflated on the card
+    for a CUDA ``device``, else in blocks over the host's cores
+    (npz.write_npz, which names its counters).  A multi-rank writer passes its
     own ``name`` shard (``counts.part<r>.npz``; the shards' bins are
     disjoint and their union is the table) with ``clean=False``, rank 0
     having cleaned the shared directory once (clean_output_dir).  ``clean``
@@ -153,24 +154,25 @@ def write_binary(out_dir: str, words: np.ndarray, counts: np.ndarray, bins: np.n
         _clean_stale_outputs(out_dir)
     path = os.path.join(out_dir, name)
     npz.write_npz(path, {"words": words, "counts": counts, "bins": bins, "k": np.int32(k)},
-                  timer=timer)
+                  timer=timer, device=device)
     return path
 
 
 def write_binary_with_manifest(out_dir: str, cfg_dict: dict, words, counts,
                                bins, k: int, extra_files: dict | None = None,
-                               timer=None) -> str:
+                               timer=None, device=None) -> str:
     """Binary output (enableKryo=1): counts.npz plus a binary-flagged
     manifest whose extra_files carry the npz hash and any caller extras
     ({name: sha256} of sibling artifacts, e.g. those a repair keeps).  A
     ``timer`` (utils.timing.StageTimer) gets the spans ``write_data`` (the
-    npz), ``write_sha256`` (its hash) and ``write_manifest``."""
+    npz; on a CUDA ``device`` with its children ``npz_encode`` and
+    ``npz_file``), ``write_sha256`` (its hash) and ``write_manifest``."""
 
     def span(name: str):
         return timer.span(name) if timer else contextlib.nullcontext()
 
     with span("write_data"):
-        path = write_binary(out_dir, words, counts, bins, k, timer=timer)
+        path = write_binary(out_dir, words, counts, bins, k, timer=timer, device=device)
     files = dict(extra_files or {})
     with span("write_sha256"):
         files["counts.npz"] = manifest_mod.file_sha256(path)

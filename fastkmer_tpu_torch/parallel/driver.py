@@ -75,7 +75,8 @@ def _write_output(cfg: JobConfig, mesh: exchange.Mesh, words, counts, bins,
     writes its bins (or its counts.part<r>.npz under enableKryo) and its
     manifest shard, and after a second barrier rank 0 merges the shards."""
     if mesh.world == 1:
-        pipeline.write_output(cfg, words, counts, bins, keep_table=keep_table)
+        pipeline.write_output(cfg, words, counts, bins, keep_table=keep_table,
+                              device=mesh.devices[0])
         return
     comm, r = mesh.comm, mesh.rank
     if r == 0:
@@ -85,7 +86,7 @@ def _write_output(cfg: JobConfig, mesh: exchange.Mesh, words, counts, bins,
     if cfg.use_kryo_serializer:
         shard_name = f"counts.part{r}.npz"
         path = writer.write_binary(cfg.output_dir, words, counts, bins, cfg.k,
-                                   name=shard_name, clean=False)
+                                   name=shard_name, clean=False, device=mesh.devices[0])
         extra = {shard_name: manifest_mod.file_sha256(path)}
     else:
         hashes = writer.write_bin_files(cfg.output_dir, words, counts, bins, cfg.k,

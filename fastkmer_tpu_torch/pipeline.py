@@ -688,7 +688,7 @@ def execute_job(
         if cfg.write:
             with timer.span("write_output"):
                 write_output(cfg, res.words, res.counts, res.bins, keep_table=keep_table,
-                             timer=timer)
+                             timer=timer, device=dev)
         if ckpt is not None:
             ckpt.clear()  # the run completed; its checkpoints are spent
     return res._replace(timings=timer.as_dict(), spans=timer.records(),
@@ -696,16 +696,19 @@ def execute_job(
 
 
 def write_output(cfg: JobConfig, words: np.ndarray, counts: np.ndarray, bins: np.ndarray,
-                 keep_table: bool = False, timer: StageTimer | None = None) -> None:
+                 keep_table: bool = False, timer: StageTimer | None = None,
+                 device=None) -> None:
     """Per-bin text files (with the EOF sentinel for the sort engine), or
-    counts.npz for ``use_kryo_serializer``, plus the manifest, into
-    cfg.output_dir; ``keep_table`` adds the table.npz sidecar.  ``timer``
-    gets the spans ``write_data`` (the files), ``write_sha256`` (the npz's
-    hash) and ``write_manifest``."""
+    counts.npz for ``use_kryo_serializer`` (deflated on the card when
+    ``device`` is a CUDA device), plus the manifest, into cfg.output_dir;
+    ``keep_table`` adds the table.npz sidecar.  ``timer`` gets the spans
+    ``write_data`` (the files), ``write_sha256`` (the npz's hash) and
+    ``write_manifest``."""
     timer = timer or StageTimer()
     if cfg.use_kryo_serializer:
         writer.write_binary_with_manifest(
             cfg.output_dir, dataclasses_dict(cfg), words, counts, bins, cfg.k, timer=timer,
+            device=device,
         )
     else:
         with timer.span("write_data"):
@@ -748,7 +751,8 @@ def repair_output(cfg: JobConfig, verbose: bool = True, device="cuda") -> dict:
 
     The table comes from a checksum-valid ``table.npz`` sidecar (written by
     ``execute_job(keep_table=True)`` or the multiseq jobs) with zero
-    recounting, or else from a recount of the dataset on ``device``; for a
+    recounting, or else from a recount of the dataset on ``device``, and a
+    counts.npz is deflated on ``device`` (on the card for CUDA); for a
     multiseq directory the recount is the count job, whose table is the
     per-k-mer sums its bin files hold.  A damaged ``distances.json`` is
     reported and not rewritten (it needs the per-sequence table).  The recount and the rewrite use
@@ -795,7 +799,7 @@ def repair_output(cfg: JobConfig, verbose: bool = True, device="cuda") -> dict:
         siblings = {n: h for n, h in extras.items() if n != "counts.npz"}
         writer.write_binary_with_manifest(
             cfg.output_dir, man["config"], words, counts, bins, run_cfg.k,
-            extra_files=siblings,
+            extra_files=siblings, device=resolve_device(device),
         )
         return manifest_mod.verify_output(cfg.output_dir)
     bad = set(status["missing"]) | set(status["mismatched"])

@@ -18,11 +18,18 @@ bit-equal to the plain version and to the sorted keys, rows the same
 multiset, also where tiles come wholly from one half) and E (the
 copy and the transpose: bit-equal, 0xFFFFFFFF wrapping to 0, a tile
 count uneven among the persistent CTAs); and the exchange between two
-ranks that share the card, with and without pinned host staging.  No jax is needed, so a machine with a
+ranks that share the card, with and without pinned host staging; and the
+card's deflate of counts.npz (its bytes equal the plain version's on every
+member kind, one piece or a piece a segment; ``write_npz`` on the card
+gives the host path's members, the same file twice, and its counters and
+spans; a multiseq enableKryo job and a repair of counts.npz deflate on
+the card too).  No jax is needed, so a machine with a
 card and no jax runs them without the jax-importing conftest:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
+
+import os
 
 import numpy as np
 import pytest
@@ -34,7 +41,9 @@ from fastkmer_tpu_torch.config import JobConfig  # noqa: E402
 from fastkmer_tpu_torch.benchmarks import cuda_bitonic_merge, cuda_probe  # noqa: E402
 from fastkmer_tpu_torch.ingest import batch as batching  # noqa: E402
 from fastkmer_tpu_torch.ops import count_sort, cuda_extract, cuda_sort, extract  # noqa: E402
+from fastkmer_tpu_torch.output import cuda_deflate, npz, writer  # noqa: E402
 from fastkmer_tpu_torch.parallel import driver, exchange  # noqa: E402
+from fastkmer_tpu_torch.utils.timing import StageTimer  # noqa: E402
 
 
 @pytest.fixture
@@ -594,3 +603,143 @@ def test_exchange_across_ranks_on_cuda(cuda, tmp_path, staging):
                 p.communicate()
     for r, out in enumerate(outs):
         assert f"RANK_OK {r}" in out, out[-3000:]
+
+
+def _deflate_inputs() -> dict:
+    """A read set's table at k = 55 (sorted 110-bit keys, counts mostly 1,
+    bins under 2048), three to one segments a member, and the two extremes:
+    random bytes (stored) and zeros (the longest matches)."""
+    rng = np.random.default_rng(55)
+    n = 12_000
+    keys = rng.integers(0, 1 << 32, size=(n, 4), dtype=np.uint64).astype(np.uint32)
+    keys[:, 3] &= np.uint32(0xFFFFC000)
+    counts = np.where(rng.random(n) < 0.78, 1, rng.poisson(29, n).clip(2, None))
+    return {"words": keys[np.lexsort(keys.T[::-1])], "counts": counts.astype(np.int64),
+            "bins": rng.integers(0, 2048, n).astype(np.int32), "k": np.int32(55),
+            "random": rng.integers(0, 256, 70_000, dtype=np.uint8),
+            "zeros": np.zeros(140_000, np.uint8)}
+
+
+DEFLATE_INPUTS = _deflate_inputs()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("piece", [cuda_deflate.PIECE, 1])
+@pytest.mark.parametrize("kind", list(DEFLATE_INPUTS))
+def test_card_deflate_equals_plain(cuda, monkeypatch, kind, piece):
+    """The kernel's stream, CRC, segments and stored segments are the plain
+    version's, in one piece and in a piece a segment (the window crossing
+    each piece's start)."""
+    monkeypatch.setattr(cuda_deflate, "PIECE", piece)
+    head, data = npz._member(DEFLATE_INPUTS[kind])
+    launches = cuda_deflate.LAUNCHES
+    (pieces, crc, segs, stored), = cuda_deflate.deflate([(head, data)], cuda)
+    z, want_crc, want_segs, want_stored = cuda_deflate.deflate_plain(bytes(head) + bytes(data))
+    assert b"".join(p.tobytes() for p in pieces) == z
+    assert (crc, segs, stored) == (want_crc, want_segs, want_stored)
+    assert cuda_deflate.LAUNCHES - launches == -(-segs // piece)
+
+
+@pytest.mark.cuda
+def test_card_write_npz_is_the_host_paths_table(cuda, tmp_path):
+    """``write_binary`` on the card: the host path's members, every CRC
+    holding, the same file twice; its counters, and the spans ``npz_encode``
+    and ``npz_file`` under ``write_data``."""
+    import zipfile
+
+    from fastkmer_tpu_torch import api
+
+    words, counts, bins = (DEFLATE_INPUTS[k] for k in ("words", "counts", "bins"))
+    launches = cuda_deflate.LAUNCHES
+    t = StageTimer()
+    card = writer.write_binary_with_manifest(str(tmp_path / "card"), {"k": 55}, words, counts,
+                                             bins, 55, timer=t, device=cuda)
+    again = writer.write_binary(str(tmp_path / "again"), words, counts, bins, 55, device=cuda)
+    host = writer.write_binary(str(tmp_path / "host"), words, counts, bins, 55,
+                               device=torch.device("cpu"))
+    members = []
+    for path in (card, host):
+        with zipfile.ZipFile(path) as z:
+            assert z.testzip() is None
+            members.append({n: z.read(n) for n in z.namelist()})
+    assert members[0] == members[1]
+    assert list(members[0]) == ["words.npy", "counts.npy", "bins.npy", "k.npy"]
+    assert open(card, "rb").read() == open(again, "rb").read()
+    res = api.load_binary(card)
+    np.testing.assert_array_equal(np.asarray(res.words), words)
+    np.testing.assert_array_equal(np.asarray(res.counts), counts)
+    c = t.counters()
+    stored = sum(cuda_deflate.deflate_plain(bytes(h) + bytes(d))[3]
+                 for h, d in map(npz._member, (words, counts, bins, np.int32(55))))
+    assert c["write_card_segments"] == 3 + 2 + 1 + 1 and c["write_stored_segments"] == stored
+    assert cuda_deflate.LAUNCHES - launches == 2  # one piece a write
+    spans = {r["id"]: r for r in t.records()}
+    for r in spans.values():
+        if r["name"] in ("npz_encode", "npz_file"):
+            assert spans[r["parent"]]["name"] == "write_data"
+    assert {"npz_encode", "npz_file"} <= {r["name"] for r in spans.values()}
+
+
+def _card_members(path: str) -> dict:
+    import zipfile
+
+    with zipfile.ZipFile(path) as z:
+        assert z.testzip() is None
+        return {n: z.read(n) for n in z.namelist()}
+
+
+@pytest.mark.cuda
+def test_multiseq_binary_job_deflates_on_the_card(cuda, tmp_path, monkeypatch):
+    """A ``--multiseq`` enableKryo job on the card writes counts.npz
+    through the card's deflate (its timer counts the segments, the kernel
+    launches), with the CPU job's members and siblings."""
+    from fastkmer_tpu_torch.multiseq import pipeline as ms
+
+    timers = []
+
+    class Kept(StageTimer):
+        def __init__(self) -> None:
+            super().__init__()
+            timers.append(self)
+
+    monkeypatch.setattr(ms, "StageTimer", Kept)
+    fa = str(tmp_path / "ms.fa")
+    _write_multiseq_fasta(fa)
+    dirs = {}
+    for device in (cuda, torch.device("cpu")):
+        cfg = ms.MultiseqConfig(dataset=fa, output_directory=str(tmp_path) + "/",
+                                prefix=f"{device.type}_", k=28, m=10, max_b=64,
+                                reads_per_batch=8, read_len=512, use_kryo_serializer=True,
+                                distance_measure="kld_log2")
+        launches = cuda_deflate.LAUNCHES
+        ms.execute_multiseq_job(cfg, verbose=False, device=device)
+        dirs[device.type] = cfg.output_dir
+        assert (cuda_deflate.LAUNCHES > launches) == (device.type == "cuda")
+    card, host = timers[0].counters(), timers[1].counters()
+    assert card["write_card_segments"] > 0 and host["write_card_segments"] == 0
+    assert "npz_encode" in timers[0].as_dict() and "npz_encode" not in timers[1].as_dict()
+    assert (_card_members(os.path.join(dirs["cuda"], "counts.npz"))
+            == _card_members(os.path.join(dirs["cpu"], "counts.npz")))
+    assert (open(os.path.join(dirs["cuda"], "distances.json"), "rb").read()
+            == open(os.path.join(dirs["cpu"], "distances.json"), "rb").read())
+
+
+@pytest.mark.cuda
+def test_repair_rewrites_counts_npz_on_the_card(cuda, tmp_path):
+    """``repair_output`` of a damaged counts.npz from the table sidecar on
+    the card: the deflate launches and the file is the job's, byte for
+    byte."""
+    fa = str(tmp_path / "reads.fa")
+    _write_fasta(fa, 28)
+    cfg = JobConfig(dataset=fa, output_directory=str(tmp_path) + "/", k=28, m=10, max_b=64,
+                    reads_per_batch=8, read_len=1024, use_kryo_serializer=True)
+    pipeline.execute_job(cfg, verbose=False, device=cuda, keep_table=True)
+    path = os.path.join(cfg.output_dir, "counts.npz")
+    want = open(path, "rb").read()
+    with open(path, "r+b") as f:
+        f.seek(len(want) // 2)
+        f.write(b"\x00" * 64)
+    launches = cuda_deflate.LAUNCHES
+    assert pipeline.repair_output(cfg, verbose=False, device=cuda)["ok"]
+    assert cuda_deflate.LAUNCHES > launches
+    assert open(path, "rb").read() == want
