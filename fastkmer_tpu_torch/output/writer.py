@@ -26,6 +26,11 @@ from . import manifest as manifest_mod
 from . import npz
 
 
+def _span(timer, name: str):
+    """``timer.span(name)``, or no span without a timer."""
+    return timer.span(name) if timer is not None else contextlib.nullcontext()
+
+
 def write_bin_files(
     out_dir: str,
     words: np.ndarray,
@@ -46,24 +51,30 @@ def write_bin_files(
     removed first: the manifest only checks the artifacts of the new run.
     Partial rewrites (pipeline.repair_output) pass clean=False.
 
-    A ``timer`` (utils.timing.StageTimer) gets the seconds the writer
-    threads spent formatting, hashing and writing the files, summed over
-    the bins, in its counters ``write_format_s``, ``write_hash_s`` and
-    ``write_file_s``."""
+    A ``timer`` (utils.timing.StageTimer) gets two spans of the calling
+    thread, ``text_group`` (the stable sort by bin, the gathers and the
+    bins' bounds) and ``text_bins`` (the file pool, from its first bin to
+    its last); the seconds the writer threads spent formatting, hashing
+    and writing the files, summed over the bins, in its counters
+    ``write_format_s``, ``write_hash_s`` and ``write_file_s``; and the
+    files and bytes written, ``EOF`` included, in ``text_files`` and
+    ``text_bytes``."""
     os.makedirs(out_dir, exist_ok=True)
     if clean:
         _clean_stale_outputs(out_dir)
     if words.shape[0] == 0:
         return {}
-    order = np.argsort(bins, kind="stable")
-    bins_s = bins[order]
-    words_s = words[order]
-    counts_s = counts[order]
-    uniq_bins, starts = np.unique(bins_s, return_index=True)
-    bounds = np.append(starts, bins_s.shape[0])
-    blist = uniq_bins.tolist()
+    with _span(timer, "text_group"):
+        order = np.argsort(bins, kind="stable")
+        bins_s = bins[order]
+        words_s = words[order]
+        counts_s = counts[order]
+        uniq_bins, starts = np.unique(bins_s, return_index=True)
+        bounds = np.append(starts, bins_s.shape[0])
+        blist = uniq_bins.tolist()
     hashes: list[str | None] = [None] * len(blist)
     seconds = np.zeros((len(blist), 3))  # a bin's format, hash and file seconds
+    sizes = np.zeros(len(blist), dtype=np.int64)  # a bin file's bytes
 
     def _write_one(bi: int) -> None:
         # the native formatter (ctypes) and the file writes release the GIL,
@@ -82,18 +93,22 @@ def write_bin_files(
             if eof_sentinel:
                 f.write(b"EOF")
         seconds[bi] = (t1 - t0, t2 - t1, time.perf_counter() - t2)
+        sizes[bi] = len(lines) + (3 if eof_sentinel else 0)
 
     workers = min(8, os.cpu_count() or 1, len(blist))
-    if workers > 1:
-        with ThreadPoolExecutor(max_workers=workers) as ex:
-            list(ex.map(_write_one, range(len(blist))))
-    else:
-        for bi in range(len(blist)):
-            _write_one(bi)
+    with _span(timer, "text_bins"):
+        if workers > 1:
+            with ThreadPoolExecutor(max_workers=workers) as ex:
+                list(ex.map(_write_one, range(len(blist))))
+        else:
+            for bi in range(len(blist)):
+                _write_one(bi)
     if timer is not None:
         for name, s in zip(("write_format_s", "write_hash_s", "write_file_s"),
                            seconds.sum(0).tolist()):
             timer.count(name, s)
+        timer.count("text_files", len(blist))
+        timer.count("text_bytes", int(sizes.sum()))
     return {int(b): h for b, h in zip(blist, hashes)}
 
 
@@ -167,16 +182,12 @@ def write_binary_with_manifest(out_dir: str, cfg_dict: dict, words, counts,
     ``timer`` (utils.timing.StageTimer) gets the spans ``write_data`` (the
     npz; on a CUDA ``device`` with its children ``npz_encode`` and
     ``npz_file``), ``write_sha256`` (its hash) and ``write_manifest``."""
-
-    def span(name: str):
-        return timer.span(name) if timer else contextlib.nullcontext()
-
-    with span("write_data"):
+    with _span(timer, "write_data"):
         path = write_binary(out_dir, words, counts, bins, k, timer=timer, device=device)
     files = dict(extra_files or {})
-    with span("write_sha256"):
+    with _span(timer, "write_sha256"):
         files["counts.npz"] = manifest_mod.file_sha256(path)
-    with span("write_manifest"):
+    with _span(timer, "write_manifest"):
         manifest_mod.write_manifest(
             out_dir, cfg_dict, words, counts, bins, extra_files=files, binary=True,
         )

@@ -3,7 +3,8 @@ the spans and counters of a count job: records nest by parent and thread,
 the totals are their spans' seconds, two threads lose no update, the
 ``fk:`` markers appear only under a profiler, one pair a main-thread span
 with nothing inside, ``native_pack_batches`` counts the natively filled
-batches, and ``--stats-json`` carries spans and counters."""
+batches, the text writer's spans and counters measure its files, and
+``--stats-json`` carries spans and counters."""
 
 import json
 import os
@@ -42,9 +43,9 @@ def fasta(tmp_path_factory):
     return path
 
 
-def _cfg(fa, out, binary=False) -> JobConfig:
+def _cfg(fa, out, binary=False, ht=False) -> JobConfig:
     return JobConfig(dataset=fa, output_directory=out, k=K, m=M, x=3, max_b=64,
-                     sequence_type=0, write=True, use_kryo_serializer=binary,
+                     sequence_type=0, write=True, use_kryo_serializer=binary, use_ht=ht,
                      reads_per_batch=R, read_len=L)
 
 
@@ -139,8 +140,8 @@ def test_job_spans_totals_and_counters(tmp_path, fasta, path, binary, kw):
     """A job's root ``job`` holds every other main-thread span; each total
     is its spans' seconds; the parse, the packing and the writer's parts
     have their parents; the counters count the job's batches and bytes."""
-    res = tpipe.execute_job(_cfg(fasta, str(tmp_path) + "/", binary), verbose=False,
-                            device="cpu", **kw)
+    cfg = _cfg(fasta, str(tmp_path) + "/", binary)
+    res = tpipe.execute_job(cfg, verbose=False, device="cpu", **kw)
     by = _by_name(res.spans)
     (job,) = by["job"]
     me = threading.current_thread().name
@@ -155,7 +156,7 @@ def test_job_spans_totals_and_counters(tmp_path, fasta, path, binary, kw):
     ids = {r["id"]: r for r in res.spans}
     for r in res.spans:
         want = "write_output" if r["name"].startswith("write_") and r["name"] != \
-            "write_output" else "job"
+            "write_output" else "write_data" if r["name"].startswith("text_") else "job"
         assert r is job or ids[r["parent"]]["name"] == want, r
     assert set(res.timings) == set(by)
     for name, rows in by.items():
@@ -173,6 +174,37 @@ def test_job_spans_totals_and_counters(tmp_path, fasta, path, binary, kw):
         assert c["dedup_parts"] == (res.n_batches if path == "dedup" else 1)
     text_counters = {"write_format_s", "write_hash_s", "write_file_s"}
     assert (text_counters <= set(c)) == (not binary)
+    _check_text_writer(res, cfg.output_dir, binary, eof=True)
+
+
+def _check_text_writer(res, out_dir, binary, eof):
+    """A text job's ``write_data`` holds one ``text_group`` and one
+    ``text_bins`` on the main thread, one after the other; ``text_files``
+    counts its bin files and ``text_bytes`` their bytes, ``EOF`` included
+    when ``eof``.  A binary job records none of them."""
+    by = _by_name(res.spans)
+    text = {"text_group", "text_bins", "text_files", "text_bytes"}
+    if binary:
+        assert not text & (set(by) | set(res.counters))
+        return
+    (data,), (group,), (files,) = by["write_data"], by["text_group"], by["text_bins"]
+    assert group["parent"] == files["parent"] == data["id"]
+    assert group["thread"] == files["thread"] == threading.current_thread().name
+    assert data["start"] <= group["start"] <= group["end"] <= files["start"] \
+        <= files["end"] <= data["end"]
+    assert res.timings["text_group"] + res.timings["text_bins"] <= res.timings["write_data"]
+    paths = [os.path.join(out_dir, n) for n in os.listdir(out_dir) if n.startswith("bin")]
+    assert res.counters["text_files"] == len(paths) > 1
+    assert res.counters["text_bytes"] == sum(os.path.getsize(p) for p in paths)
+    assert {open(p, "rb").read().endswith(b"EOF") for p in paths} == {eof}
+
+
+def test_ht_text_writer_spans_and_counters(tmp_path, fasta):
+    """The HT engine's bins, without the sentinel, take the same spans and
+    counters."""
+    cfg = _cfg(fasta, str(tmp_path) + "/", ht=True)
+    res = tpipe.execute_job(cfg, verbose=False, device="cpu")
+    _check_text_writer(res, cfg.output_dir, binary=False, eof=False)
 
 
 @pytest.mark.parametrize("native", [True, False])
